@@ -1,0 +1,23 @@
+"""repro_torch — the ATLAS decision loop ported to PyTorch, with its forest
+kernels written by hand in CUDA C++ for Hopper (sm_90a).
+
+The JAX package ``repro`` stays the reference; this package mirrors its module
+tree and public names and imports nothing from it.  Ported so far:
+
+  cluster/     discrete-event fleet simulator, chaos, workload, telemetry,
+               invariants, and the §5 experiment driver.
+  sched/       FIFO / Fair / Capacity baselines.
+  core/        ATLAS scheduler (Algorithm 1), adaptive heartbeat, predictor.
+  ml/          oblivious forests (fit + inference) and the forest-family
+               models (Tree, CTree, R.F., Boost).
+  online/      the batched prediction broker.
+  kernels/     CUDA forest kernels (csrc/forest.cu), their plain torch
+               versions (ref.py) and the device dispatch (ops.py).
+  convert.py   carries trained parameters across from the JAX package.
+
+Device rule: every entry point that touches tensors takes ``device``;
+``None`` means CUDA and raises when no GPU is present (see
+``kernels.ops.resolve_device``).  CPU runs pass ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper, with their plain torch versions.
+
+  csrc/forest.cu   oblivious-forest inference: single forest and the
+                   block-diagonal multi-model pass (one thread per row)
+  _build.py        nvcc build of csrc/*.cu into build/repro_torch/, keyed by
+                   a hash of the sources and flags
+  forest.py        ctypes launchers with launch counters
+  ref.py           plain torch versions (the CPU path and the kernels' oracle)
+  ops.py           device dispatch: "torch" for CPU tensors, "cuda" for CUDA
+                   tensors; ``resolve_device`` implements the device rule
+"""
+
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

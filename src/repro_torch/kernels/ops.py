@@ -1,0 +1,102 @@
+"""Device rule and kernel dispatch.
+
+Every op takes ``impl``:
+  None      by device: the CUDA kernel for CUDA tensors, the plain torch
+            version (``ref.py``) for CPU tensors.
+  "cuda"    the CUDA kernel; raises on CPU tensors.
+  "torch"   the plain torch version, on any device.  On CUDA tensors only
+            when asked for explicitly (``chip_smoke.py`` compares the two).
+
+A launch counter per kernel counts the launches made through these
+wrappers, so a run can show that its main path went through the kernels."""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.kernels import ref
+
+IMPLS = ("torch", "cuda")
+KERNELS = ("forest_infer", "forest_infer_grouped")
+
+_COUNT_LOCK = threading.Lock()
+_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device rule of the port: ``None`` means CUDA, and without a GPU
+    that raises instead of running on the CPU; CPU runs say so with
+    ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
+    return dev
+
+
+def launch_counts() -> dict:
+    with _COUNT_LOCK:
+        return dict(_LAUNCHES)
+
+
+def reset_launch_counts():
+    with _COUNT_LOCK:
+        for k in _LAUNCHES:
+            _LAUNCHES[k] = 0
+
+
+def _count(kernel: str):
+    with _COUNT_LOCK:
+        _LAUNCHES[kernel] += 1
+
+
+def _resolve(impl: str | None, x: torch.Tensor) -> str:
+    if impl is None:
+        return "cuda" if x.is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS} or None, got {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors; x is on {x.device}")
+    return impl
+
+
+def forest_infer(x, feat_idx, thresholds, leaves, *, impl=None):
+    """Mean leaf value of one oblivious forest: x (B, F) -> (B,)."""
+    if _resolve(impl, x) == "torch":
+        return ref.forest_infer_ref(x, feat_idx, thresholds, leaves)
+    if not x.shape[0]:                        # nothing to launch
+        return x.new_empty(0)
+    from repro_torch.kernels import forest as fk
+    out = fk.forest_infer(x, feat_idx, thresholds, leaves)
+    _count("forest_infer")
+    return out
+
+
+def forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves, n_trees,
+                         *, impl=None):
+    """Block-diagonal pass over the packed multi-model layout (see
+    ``ml.forest.pack_forests``); rows stacked segment by segment, segment m
+    being rows ``seg_start[m]:seg_start[m + 1]``."""
+    if _resolve(impl, x) == "torch":
+        sizes = (seg_start[1:] - seg_start[:-1]).long()
+        seg_ids = torch.repeat_interleave(
+            torch.arange(sizes.shape[0], device=x.device), sizes)
+        return ref.forest_infer_grouped_ref(x, seg_ids, feat_idx, thresholds,
+                                            leaves, n_trees)
+    if not x.shape[0]:                        # nothing to launch
+        return x.new_empty(0)
+    from repro_torch.kernels import forest as fk
+    out = fk.forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves,
+                                  n_trees)
+    _count("forest_infer_grouped")
+    return out

@@ -1,0 +1,6 @@
+from repro_torch.ml.forest import (ForestParams, fit_oblivious_forest,
+                                   forest_predict)
+from repro_torch.ml.models import ALL_MODELS
+
+__all__ = ["ALL_MODELS", "ForestParams", "fit_oblivious_forest",
+           "forest_predict"]

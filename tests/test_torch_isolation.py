@@ -1,0 +1,125 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+defaults need a GPU and never fall back to the CPU, and a kernel is never
+asked to run on a CPU tensor."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.predictor import TaskPredictor
+from repro_torch.kernels import ops
+from repro_torch.ml import forest as tforest
+from repro_torch.online.broker import BrokerPredictor, PredictionBroker
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+_NO_JAX_RUN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from repro_torch.cluster import WorkloadConfig
+from repro_torch.cluster.experiment import ExperimentConfig, compare
+cfg = ExperimentConfig(
+    workload=WorkloadConfig(n_single=6, n_chains=1, chain_len_range=(3, 4),
+                            maps_range=(4, 8), reduces_range=(2, 6),
+                            submit_horizon=2400.0),
+    min_samples=40, max_train=40, device="cpu", check_invariants=True)
+out = compare("fifo", cfg)
+assert out["atlas"]["invariant_violations"] == 0
+assert out["atlas"]["atlas"]["predictions"] > 0
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+print("ran", out["atlas"]["atlas"]["predictions"])
+"""
+
+
+def test_runs_with_jax_unimportable():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_RUN], capture_output=True, text=True,
+        timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ran ")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: ops.resolve_device(None),
+    lambda: ops.resolve_device("cuda"),
+    lambda: TaskPredictor(),
+    lambda: BrokerPredictor(),
+    lambda: PredictionBroker(),
+    lambda: tforest.fit_oblivious_forest(np.ones((4, 2), np.float32),
+                                         np.ones(4, np.float32)),
+], ids=["resolve_none", "resolve_cuda", "TaskPredictor", "BrokerPredictor",
+        "PredictionBroker", "fit_oblivious_forest"])
+def test_defaults_raise_without_gpu(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def _forest():
+    rs = np.random.RandomState(0)
+    return tforest.ForestParams(
+        feat_idx=rs.randint(0, 4, (3, 2)).astype(np.int32),
+        thresholds=rs.randn(3, 2).astype(np.float32),
+        leaves=rs.rand(3, 4).astype(np.float32))
+
+
+def test_scoring_defaults_raise_without_gpu(no_cuda):
+    p, x = _forest(), np.zeros((2, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tforest.forest_predict(p, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tforest.forest_predict_grouped([(p, x)])
+
+
+def test_cuda_impl_on_cpu_tensor_raises():
+    p = _forest()
+    x = torch.zeros((2, 4))
+    fi, th, lv = p.on("cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.forest_infer(x, fi, th, lv, impl="cuda")
+    packed = tforest.pack_forests([p])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.forest_infer_grouped(x, torch.tensor([0, 2], dtype=torch.int32),
+                                 *packed.on("cpu"), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tforest.forest_predict(p, x.numpy(), device="cpu", impl="cuda")
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_feature_width_checked_before_launch():
+    p = _forest()
+    with pytest.raises(ValueError, match="features"):
+        tforest.forest_predict(p, np.zeros((2, 2), np.float32), device="cpu")
