@@ -15,10 +15,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
            trace on the card and on the CPU: equal parameters
   slice    the §5 protocol (compare("fifo")) on the card at 1000 nodes with
            invariant checking, then the same ATLAS run behind the batched
-           BrokerPredictor; zero violations, both kernels launched, equal
-           metrics
-  parity   one 100-node ATLAS run with the predictor on the card and on the
-           CPU from the same trained parameters: equal metrics
+           BrokerPredictor; zero violations, each run launched its kernel,
+           equal metrics, and every probability either run served equal to
+           the numpy mirror on the same rows and parameters
+  parity   100-node ATLAS runs under the baseline chaos and under the
+           kitchen_sink scenario (where ATLAS predicts failures), each with
+           the predictor on the card, on the CPU and behind the
+           BrokerPredictor on the card, from the same trained parameters:
+           equal metrics
   trace    the 1000-node ATLAS run, scalar and brokered, under
            torch.profiler: the card's idle share and the kernels' own
            device times
@@ -31,6 +35,7 @@ result.  Imports nothing of JAX or of the JAX package."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -56,6 +61,11 @@ SOURCE = "src/repro_torch/kernels/csrc/forest.cu"
 REPLACES = {"forest_infer": "src/repro/kernels/forest.py:70",
             "forest_infer_grouped": "src/repro/kernels/forest.py:171"}
 MAIN_ROWS = {"forest_infer": 13, "forest_infer_grouped": 4096}
+# the JAX package's "kitchen_sink" chaos scenario (repro/cluster/scenarios.py),
+# as values: at 100 nodes ATLAS predicts failures under it and relocates
+KITCHEN_SINK = dict(intensity=9.0, kill_tt=0.22, suspend_tt=0.12,
+                    kill_dn=0.16, net_slow=0.22, net_drop=0.08,
+                    burst_prob=0.10, burst_size=(4, 8), mean_outage=1100.0)
 
 RECORDS: list = []
 
@@ -253,15 +263,15 @@ def phase_kernels(torch, dev):
     return timing, max_err
 
 
-def _slice_config(fleet_size, device):
+def _slice_config(fleet_size, device, chaos=None):
     from repro_torch.cluster import ChaosConfig, WorkloadConfig
     from repro_torch.cluster.experiment import ExperimentConfig
-    # the JAX package's "map_heavy" workload shape and "baseline" scenario
-    # (repro/cluster/scenarios.py), as values
+    # the JAX package's "map_heavy" workload shape and, by default, its
+    # "baseline" scenario (repro/cluster/scenarios.py), as values
     return ExperimentConfig(
         workload=WorkloadConfig(n_single=64, n_chains=4, maps_range=(10, 24),
                                 reduces_range=(1, 4)),
-        chaos=ChaosConfig(), seed=0, check_invariants=True,
+        chaos=ChaosConfig(**(chaos or {})), seed=0, check_invariants=True,
         fleet_size=fleet_size, device=device)
 
 
@@ -309,24 +319,96 @@ def phase_fit(torch, dev):
     return cfg, base, gpu
 
 
+@contextlib.contextmanager
+def _served(log: list):
+    """Record every (params, rows, probabilities) a forest-family predictor
+    serves while the block runs: what ``TaskPredictor.predict_batch``
+    returns and what ``BrokerPredictor._flush`` hands to its memo.  The
+    rows and probabilities are copied, since the broker reuses its
+    buffers."""
+    from repro_torch.core.predictor import TaskPredictor, forest_family_params
+    from repro_torch.online.broker import BrokerPredictor
+
+    def keep(model, X, out):
+        params = forest_family_params(model)
+        if params is not None and len(X):
+            log.append((params, np.array(X, np.float32), np.array(out)))
+
+    predict_batch, flush = TaskPredictor.predict_batch, BrokerPredictor._flush
+
+    def tapped_predict_batch(self, kind, X):
+        out = predict_batch(self, kind, X)
+        keep(self.model_for_kind(kind), X, out)
+        return out
+
+    def tapped_flush(self, groups):
+        outs = flush(self, groups)
+        for (model, X), out in zip(groups, outs):
+            keep(model, X, out)
+        return outs
+
+    TaskPredictor.predict_batch = tapped_predict_batch
+    BrokerPredictor._flush = tapped_flush
+    try:
+        yield log
+    finally:
+        TaskPredictor.predict_batch = predict_batch
+        BrokerPredictor._flush = flush
+
+
+def _check_served(log: list, what: str) -> dict:
+    """Every served probability against the clipped numpy mirror on the same
+    rows and parameters, one mirror pass per distinct parameter set."""
+    from repro_torch.ml.forest import forest_predict_np
+    by_params: dict = {}
+    for params, X, out in log:
+        by_params.setdefault(id(params), (params, [], []))
+        by_params[id(params)][1].append(X)
+        by_params[id(params)][2].append(out)
+    rows, below, lowest = 0, 0, 1.0
+    for params, xs, outs in by_params.values():
+        got = np.concatenate(outs)
+        want = np.clip(forest_predict_np(params, np.concatenate(xs)),
+                       0.0, 1.0).astype(np.float32)
+        check(got.dtype == np.float32 and np.array_equal(got, want),
+              f"{what}: a served probability != numpy mirror")
+        rows += got.size
+        below += int((got < 0.5).sum())
+        lowest = min(lowest, float(got.min()))
+    check(rows > 0, f"{what}: no probability served")
+    return {"calls": len(log), "rows": rows, "models": len(by_params),
+            "rows_below_half": below, "min_p": lowest}
+
+
 def phase_slice(torch, dev, cfg, base_metrics, trained):
+    """The §5 protocol, then the same ATLAS run behind the BrokerPredictor.
+    The launch counts are zeroed before each run and read after it: the
+    scalar path (compare) must launch forest_infer, the brokered run
+    forest_infer_grouped."""
     from repro_torch.cluster.experiment import compare, run_scheduler
     from repro_torch.kernels import ops
     from repro_torch.online.broker import BrokerPredictor
     broker = BrokerPredictor(**_predictor_kw(cfg), device=dev)
     broker.load_snapshot(trained.snapshot())
 
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = compare("fifo", cfg)
-    torch.cuda.synchronize()
-    t_compare = time.perf_counter() - t0
-    after_compare = ops.launch_counts()
-    t0 = time.perf_counter()
-    brokered, _, _ = run_scheduler("atlas-fifo", cfg, broker)
-    torch.cuda.synchronize()
-    t_broker = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    with _served([]) as scalar_log:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = compare("fifo", cfg)
+        torch.cuda.synchronize()
+        t_compare = time.perf_counter() - t0
+        launches_compare = ops.launch_counts()
+    with _served([]) as broker_log:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        brokered, _, _ = run_scheduler("atlas-fifo", cfg, broker)
+        torch.cuda.synchronize()
+        t_broker = time.perf_counter() - t0
+        launches_broker = ops.launch_counts()
+    check(launches_compare["forest_infer"] > 0,
+          "compare never launched forest_infer")
+    check(launches_broker["forest_infer_grouped"] > 0,
+          "the brokered run never launched forest_infer_grouped")
 
     base, atlas = result["base"], result["atlas"]
     for name, m in (("base", base), ("atlas", atlas), ("broker", brokered)):
@@ -335,8 +417,6 @@ def phase_slice(torch, dev, cfg, base_metrics, trained):
     check({k: v for k, v in base.items() if k not in (
         "job_exec_time_matched", "long_job_exec_time")} == base_metrics,
         "compare's baseline differs from the fit phase's")
-    for k in ops.KERNELS:
-        check(launches[k] > 0, f"{k} never launched on the main path")
     # run_scheduler adds sched_stats; compare adds the matched-job times
     extra = {"sched_stats", "job_exec_time_matched", "long_job_exec_time"}
     check(set(brokered) ^ set(atlas) <= extra, "metric keys differ")
@@ -344,9 +424,14 @@ def phase_slice(torch, dev, cfg, base_metrics, trained):
           == {k: v for k, v in atlas.items() if k not in extra},
           "BrokerPredictor run != TaskPredictor run")
     check(atlas["atlas"]["predictions"] > 0, "ATLAS made no predictions")
+    t0 = time.perf_counter()
+    served = {"scalar": _check_served(scalar_log, "compare"),
+              "broker": _check_served(broker_log, "brokered run")}
     emit({"phase": "slice", "fleet_size": FLEET, "compare_s": t_compare,
-          "broker_run_s": t_broker, "launches_compare": after_compare,
-          "launches": launches,
+          "broker_run_s": t_broker, "launches_compare": launches_compare,
+          "launches_broker": launches_broker,
+          "served_equal_numpy_mirror": served,
+          "served_check_s": time.perf_counter() - t0,
           "broker": {"dispatches": broker.n_dispatches,
                      "rows": broker.n_rows_scored,
                      "memo_hits": broker.n_memo_hits,
@@ -354,28 +439,50 @@ def phase_slice(torch, dev, cfg, base_metrics, trained):
           "atlas": atlas["atlas"], "deltas": result["deltas"],
           "tasks_total": atlas["tasks_total"],
           "invariant_checks": atlas["invariant_checks"]})
-    return launches
+    return {"forest_infer": launches_compare["forest_infer"],
+            "forest_infer_grouped": launches_broker["forest_infer_grouped"]}
 
 
 def phase_parity(torch, dev):
+    """At 100 nodes, under the baseline chaos and under kitchen_sink: one
+    CPU-fitted predictor's parameters scored on the card, on the CPU and
+    behind the BrokerPredictor on the card give equal whole-run metrics.
+    Under kitchen_sink ATLAS must predict failures, so the decisions do
+    depend on the scores' values."""
     from repro_torch.cluster.experiment import run_baseline, run_scheduler
     from repro_torch.core.predictor import TaskPredictor
-    cfg = _slice_config(PARITY_FLEET, None)
-    _, trace, _ = run_baseline("fifo", cfg)
-    trained = TaskPredictor(**_predictor_kw(cfg), device="cpu")
-    check(trained.fit(trace), "parity predictor fitted")
-    metrics, secs = {}, {}
-    for where in (dev, "cpu"):
-        p = TaskPredictor(**_predictor_kw(cfg), device=where)
-        p.load_snapshot(trained.snapshot())
-        t0 = time.perf_counter()
-        metrics[str(where)], _, _ = run_scheduler(
-            "atlas-fifo", dataclasses.replace(cfg, device=where), p)
-        secs[str(where)] = time.perf_counter() - t0
-    check(metrics[str(dev)] == metrics["cpu"], "CUDA run != CPU run")
-    emit({"phase": "parity", "fleet_size": PARITY_FLEET, "run_s": secs,
-          "model_fits": metrics["cpu"]["atlas"]["model_fits"],
-          "metrics_equal": True})
+    from repro_torch.online.broker import BrokerPredictor
+    out = {}
+    for scenario, chaos in (("baseline", None), ("kitchen_sink", KITCHEN_SINK)):
+        cfg = _slice_config(PARITY_FLEET, None, chaos)
+        _, trace, _ = run_baseline("fifo", cfg)
+        trained = TaskPredictor(**_predictor_kw(cfg), device="cpu")
+        check(trained.fit(trace), f"{scenario}: parity predictor fitted")
+        metrics, secs = {}, {}
+        for run, cls, where in (("cuda", TaskPredictor, dev),
+                                ("cpu", TaskPredictor, "cpu"),
+                                ("cuda_broker", BrokerPredictor, dev)):
+            p = cls(**_predictor_kw(cfg), device=where)
+            p.load_snapshot(trained.snapshot())
+            t0 = time.perf_counter()
+            metrics[run], _, _ = run_scheduler(
+                "atlas-fifo", dataclasses.replace(cfg, device=where), p)
+            secs[run] = time.perf_counter() - t0
+            check(metrics[run]["invariant_violations"] == 0,
+                  f"{scenario} {run}: invariant violations")
+        check(metrics["cuda"] == metrics["cpu"],
+              f"{scenario}: CUDA run != CPU run")
+        check(metrics["cuda_broker"] == metrics["cuda"],
+              f"{scenario}: BrokerPredictor run != TaskPredictor run")
+        atlas = metrics["cpu"]["atlas"]
+        if chaos is not None:
+            check(atlas["predicted_fail"] > 0,
+                  f"{scenario}: ATLAS predicted no failure")
+        out[scenario] = {"run_s": secs, "metrics_equal": True,
+                         **{k: atlas[k] for k in (
+                             "predictions", "predicted_fail", "relocations",
+                             "penalties", "model_fits")}}
+    emit({"phase": "parity", "fleet_size": PARITY_FLEET, **out})
 
 
 def _device_time(prof) -> dict:

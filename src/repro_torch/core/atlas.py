@@ -28,9 +28,7 @@ from repro_torch.sched.base import Scheduler, SchedulerStats
 @dataclasses.dataclass
 class AtlasStats(SchedulerStats):
     """ATLAS's ``stats()`` schema: the shared counters plus Algorithm-1
-    accounting.  The refresher trio is ``None`` (omitted from ``to_dict``)
-    when no drift-aware refresh loop is attached, so cell stats stay
-    byte-identical whichever lifecycle ran the model."""
+    accounting."""
     predictions: int = 0
     predicted_fail: int = 0
     relocations: int = 0
@@ -39,14 +37,6 @@ class AtlasStats(SchedulerStats):
     dead_probes: int = 0
     hb_adjustments: int = 0
     model_fits: int = 0
-    refreshes: int | None = None
-    promotions: int | None = None
-    rollbacks: int | None = None
-    # decisions taken while the serving predictor was degraded (broker
-    # unreachable past its retry budget, scoring fell back to the paper's
-    # schedule-anyway default); None/omitted on every healthy run so clean
-    # cell stats keep their historical bytes
-    degraded_decisions: int | None = None
 
 
 class ATLASScheduler(Scheduler):
@@ -54,7 +44,7 @@ class ATLASScheduler(Scheduler):
 
     def __init__(self, base: Scheduler, *, predictor: TaskPredictor | None = None,
                  threshold: float = 0.5, n_speculative: int = 2,
-                 retrain_every: float = 600.0, refresher=None,
+                 retrain_every: float = 600.0,
                  heartbeat: HeartbeatController | None = None,
                  max_penalty_box: int = 512, penalty_timeout: float = 150.0):
         super().__init__()
@@ -64,11 +54,6 @@ class ATLASScheduler(Scheduler):
         self.threshold = threshold
         self.n_speculative = n_speculative
         self.retrain_every = retrain_every
-        # optional drift-aware refresh loop (online/drift, not yet ported): retrains on
-        # feature/score drift instead of only the fixed §5.1 clock
-        self.refresher = refresher
-        if refresher is not None:
-            refresher.bind_predictor(self.predictor)
         self.hb = heartbeat or HeartbeatController()
         self.penalty_timeout = penalty_timeout
         self.penalty_box: deque = deque(maxlen=max_penalty_box)
@@ -79,16 +64,13 @@ class ATLASScheduler(Scheduler):
         self.n_relocations = 0
         self.n_penalties = 0
         self.n_dead_probes = 0
-        self.n_degraded_decisions = 0
 
     # ------------------------------------------------------------------ binding
     def bind(self, sim):
         self.sim = sim
         self.base.bind(sim)
         self.base.launch = self._atlas_launch        # intercept Algorithm-1 gate
-        if self.refresher is not None:
-            sim._push(self.refresher.check_every, EV_RETRAIN, None)
-        elif self.retrain_every > 0:
+        if self.retrain_every > 0:
             sim._push(self.retrain_every, EV_RETRAIN, None)
 
     # ------------------------------------------------------------------ hooks
@@ -106,14 +88,6 @@ class ATLASScheduler(Scheduler):
         self.base.on_heartbeat(node)
 
     def on_retrain(self):
-        if self.refresher is not None:
-            # drift-aware path: check often, retrain when the monitor (or the
-            # staleness clock it keeps) says the environment moved
-            if self.sim.trace is not None:
-                self.refresher.step(self.sim)
-            self.sim._push(self.sim.now + self.refresher.check_every,
-                           EV_RETRAIN, None)
-            return
         if self.sim.trace is not None:
             self.predictor.fit(self.sim.trace)
         self.sim._push(self.sim.now + self.retrain_every, EV_RETRAIN, None)
@@ -123,11 +97,6 @@ class ATLASScheduler(Scheduler):
         sim = self.sim
         self.n_predictions += 1
         p = self.predictor.p_success(sim, task, node, speculative)
-        if getattr(self.predictor, "degraded", False):
-            # graceful degradation: the serving path is answering with the
-            # untrained-predictor default (p=1.0, schedule anyway) — count
-            # the decision so operators can bound the outage's blast radius
-            self.n_degraded_decisions += 1
 
         if p >= self.threshold:
             # ---- predicted SUCCESS: verify TT/DN liveness, then slots
@@ -254,14 +223,4 @@ class ATLASScheduler(Scheduler):
             model_fits=self.predictor.fits,
             # NOTE: dispatch counters live on the predictor/broker, not here —
             # cell stats must be identical whichever batching executor ran them
-            **({"refreshes": self.refresher.refreshes,
-                "promotions": self.refresher.promotions,
-                "rollbacks": self.refresher.rollbacks}
-               if self.refresher is not None else {}),
-            **({"degraded_decisions": self.n_degraded_decisions}
-               if self.n_degraded_decisions else {}),
         )
-
-    def frame_stats(self) -> dict:
-        return {"penalty_box": len(self.penalty_box),
-                "pred": self.predictor.frame_stats()}

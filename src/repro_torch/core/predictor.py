@@ -74,14 +74,6 @@ class TaskPredictor:
             self._models_changed()
         return trained
 
-    def adopt(self, other: "TaskPredictor"):
-        """Take over another predictor's trained models (drift-refresh promote:
-        the candidate was fitted off to the side, evaluated, and won)."""
-        self.map_model = other.map_model
-        self.reduce_model = other.reduce_model
-        self.fits = other.fits
-        self._models_changed()
-
     def _models_changed(self):
         """Hook: the broker invalidates its memo when the models swap."""
 
@@ -119,14 +111,6 @@ class TaskPredictor:
     def begin_tick(self, sim, extra_keys=()):
         """Scheduler-tick hook (no-op here).  The online BrokerPredictor uses
         it to snapshot the pending queue and prime one batched flush."""
-
-    def frame_stats(self) -> dict:
-        """Live accounting snapshot for the obs layer (``Scheduler.
-        frame_stats()["pred"]``).  The plain predictor has no memo, so the
-        memo counters are structurally zero; BrokerPredictor overrides with
-        its real accounting plus memo size/eviction fields."""
-        return {"dispatches": self.n_dispatches, "rows": self.n_rows_scored,
-                "memo_hits": 0, "memo_misses": 0, "demand_rows": 0}
 
     def p_success(self, sim, task, node, speculative=False) -> float:
         if self.model_for_kind(task.kind) is None:

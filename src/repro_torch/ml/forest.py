@@ -4,9 +4,8 @@ side of the ATLAS failure predictors.
 Oblivious trees (one (feature, threshold) test per level, CatBoost-style):
 every level of a tree tests one feature, so inference is D gathers and
 compares per tree (``kernels/csrc/forest.cu``).  Training is histogram-based
-and vectorised: all trees (and, for cross-validation, all folds) are fitted
-at once as a batch of per-sample weight vectors — bootstrap resampling and
-fold masking are both just weights.
+and vectorised: all trees are fitted at once as a batch of per-sample weight
+vectors — bootstrap resampling is just weights.
 
 The split criterion is weighted variance reduction, which for {0,1} targets is
 equivalent to Gini impurity up to a monotone transform; "ctree" mode normalises
@@ -108,7 +107,7 @@ def _best_split(bits, w, wy, wyy, leaf, *, n_leaves: int, criterion: str):
     bits: (N, FQ) f32 — precomputed X[:,f] > thr[f,q] indicators.
     w/wy/wyy: (T, N) — per-tree sample weights, weight*target, weight*target^2.
     leaf: (T, N) int64 current leaf of each sample.
-    Returns (gain (T, FQ), best flat candidate per tree (T,))."""
+    Returns the best flat candidate per tree (T,)."""
     ohT = torch.nn.functional.one_hot(leaf, n_leaves).to(bits.dtype) \
         .transpose(1, 2)                                       # (T, L, N)
     tot = ohT @ torch.stack([w, wy, wyy], dim=2)               # (T, L, 3)
@@ -131,7 +130,7 @@ def _best_split(bits, w, wy, wyy, leaf, *, n_leaves: int, criterion: str):
             _sum_leaves(tot[..., 0]), min=eps)[:, None]
         gain = gain / torch.sqrt(pooled + eps)
     # degenerate splits (all left / all right) get zero gain naturally
-    return gain, torch.argmax(gain, dim=1)
+    return torch.argmax(gain, dim=1)
 
 
 def _leaf_values(w, wy, leaf, *, n_leaves: int):
@@ -146,13 +145,8 @@ def fit_oblivious_forest(X: np.ndarray, y: np.ndarray, *, n_trees: int = 24,
                          depth: int = 5, n_bins: int = 8, bootstrap: bool = True,
                          criterion: str = "var", seed: int = 0,
                          sample_weight: np.ndarray | None = None,
-                         fold_masks: np.ndarray | None = None,
                          device=None) -> ForestParams:
-    """Fit T oblivious trees of given depth on ``device``.
-
-    fold_masks: optional (K, N) {0,1} — trains T trees *per fold* in one batch
-    (weights zeroed on the fold's test samples); returns K*T trees ordered
-    fold-major."""
+    """Fit ``n_trees`` oblivious trees of given depth on ``device``."""
     dev = resolve_device(device)
     N, F = X.shape
     thr = make_bins(X, n_bins)                                 # (F, Q)
@@ -160,16 +154,11 @@ def fit_oblivious_forest(X: np.ndarray, y: np.ndarray, *, n_trees: int = 24,
     bits_np = (X[:, :, None] > thr[None]).astype(np.float32).reshape(N, F * Q)
 
     rng = np.random.RandomState(seed)
-    if fold_masks is None:
-        fold_masks = np.ones((1, N), np.float32)
-    K = fold_masks.shape[0]
-    T = n_trees * K
+    T = n_trees
     if bootstrap:
-        w0 = rng.poisson(1.0, size=(T, N)).astype(np.float32)
+        w_np = rng.poisson(1.0, size=(T, N)).astype(np.float32)
     else:
-        w0 = np.ones((T, N), np.float32)
-    mask = np.repeat(fold_masks, n_trees, axis=0)              # (T, N) fold-major
-    w_np = w0 * mask
+        w_np = np.ones((T, N), np.float32)
     if sample_weight is not None:
         w_np = w_np * sample_weight[None, :]
 
@@ -185,8 +174,8 @@ def fit_oblivious_forest(X: np.ndarray, y: np.ndarray, *, n_trees: int = 24,
     thr_flat = thr.reshape(-1)
     with _full_fp32_matmuls():
         for d in range(depth):
-            _, best = _best_split(bits, w, wy, wyy, leaf,
-                                  n_leaves=1 << d, criterion=criterion)
+            best = _best_split(bits, w, wy, wyy, leaf,
+                               n_leaves=1 << d, criterion=criterion)
             best_np = best.cpu().numpy()
             feat_idx[:, d] = best_np // Q
             thresholds[:, d] = thr_flat[best_np]
@@ -231,15 +220,12 @@ def _leaf_votes_np(fi, th, lv, x: np.ndarray) -> np.ndarray:
     return np.take(lv.astype(np.float32).reshape(-1), flat_idx)
 
 
-def forest_predict_np(params: ForestParams, X: np.ndarray,
-                      tree_slice: slice | None = None) -> np.ndarray:
+def forest_predict_np(params: ForestParams, X: np.ndarray) -> np.ndarray:
     """Pure-numpy mirror of ``kernels.ref.forest_infer_ref``: the bitwise
     oracle of every scoring path of the port."""
-    x = np.asarray(X, np.float32)
-    fi, th, lv = params.feat_idx, params.thresholds, params.leaves
-    if tree_slice is not None:
-        fi, th, lv = fi[tree_slice], th[tree_slice], lv[tree_slice]
-    return _mean_over_trees(_leaf_votes_np(fi, th, lv, x))
+    return _mean_over_trees(_leaf_votes_np(
+        params.feat_idx, params.thresholds, params.leaves,
+        np.asarray(X, np.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -448,19 +434,15 @@ def forest_predict_grouped(groups, *, impl: str | None = None,
 
 
 def forest_predict(params: ForestParams, X: np.ndarray, *,
-                   impl: str | None = None, tree_slice: slice | None = None,
-                   device=None) -> np.ndarray:
+                   impl: str | None = None, device=None) -> np.ndarray:
     """Mean leaf value over trees — a probability for {0,1} targets.
 
     impl=None scores on ``device`` at every batch size: the CUDA kernel on
     the card, its plain torch version on the CPU.  "numpy" takes the numpy
     mirror; "cuda"/"torch" force a path.  All are bitwise equal."""
     if impl == "numpy":
-        return forest_predict_np(params, X, tree_slice)
+        return forest_predict_np(params, X)
     dev = resolve_device(device)
     _check_width(params.feat_idx, X.shape[1])
-    fi, th, lv = params.on(dev)
-    if tree_slice is not None:
-        fi, th, lv = (a[tree_slice].contiguous() for a in (fi, th, lv))
-    return ops.forest_infer(_rows_on(X, dev), fi, th, lv,
+    return ops.forest_infer(_rows_on(X, dev), *params.on(dev),
                             impl=impl).cpu().numpy()

@@ -2,7 +2,6 @@
 
   broker     tick-primed memo + cross-client barrier/depth flushes; a flush
              is one pass of the grouped forest kernel on the card
-  faults     PredictorUnavailableError, the broker client's post-retry verdict
 """
 
 from repro_torch.online.broker import (BrokerPredictor, PredictionBroker,

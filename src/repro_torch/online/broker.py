@@ -14,25 +14,13 @@ Two layers, composable:
 * ``PredictionBroker``: batches *across* clients.  Requests append their rows
   into per-model columnar buffers under the broker lock; a flush scores each
   model's filled prefix as ONE slice of ONE block-diagonal pass
-  (``ml.forest.forest_predict_grouped``) and scatters spans back.  Two flush
-  policies:
-
-    policy="barrier"  (default) a request parks until every registered client
-                      has one queued (a lock-step round).  Rounds are a pure
-                      function of each client's request sequence — no timers —
-                      so flush/dispatch counts are deterministic and a
-                      brokered sweep reproduces the serial sweep byte-for-byte.
-                      When a single client remains (skewed wave: one long cell
-                      running solo), the round would contain exactly its own
-                      request, so ``submit`` scores it inline and skips the
-                      park/notify machinery entirely (identical accounting).
-    policy="depth"    queue-depth flush with bounded delay: flush as soon as
-                      ``depth`` rows are queued, or ``max_delay`` seconds after
-                      the first request of a batch arrived — whichever comes
-                      first.  Tail batches stay fat on skewed waves at the
-                      price of wall-clock timers (row-level outputs are still
-                      bit-identical; flush *counts* become timing-dependent,
-                      so the deterministic sweeps keep the barrier).
+  (``ml.forest.forest_predict_grouped``) and scatters spans back.  A request
+  parks until every registered client has one queued (a lock-step barrier
+  round).  Rounds are a pure function of each client's request sequence — no
+  timers — so flush/dispatch counts are deterministic.  When a single client
+  remains (skewed wave: one long run going solo), the round would contain
+  exactly its own request, so ``submit`` scores it inline and skips the
+  park/notify machinery entirely (identical accounting).
 
 Exactness: probabilities must not depend on how requests are batched, or
 decisions would drift between executors.  Per-row forest arithmetic is
@@ -52,7 +40,6 @@ grouped CUDA kernel on the card, its plain torch version on the CPU),
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 
@@ -188,31 +175,19 @@ class _Pending:
 
 
 class PredictionBroker:
-    """Cross-client batching server with barrier or queue-depth flushes.
+    """Cross-client batching server with barrier-round flushes.
 
-    Clients are registered up front (``add_clients``) so barrier-round
-    membership never depends on thread start-up timing; each client calls
-    ``done()`` (in a ``finally``) when its run completes.  ``submit`` blocks
-    until the flush containing the request completes."""
+    Clients are registered up front (``add_clients``) so round membership
+    never depends on thread start-up timing; each client calls ``done()``
+    (in a ``finally``) when its run completes.  ``submit`` blocks until the
+    flush containing the request completes."""
 
-    def __init__(self, impl: str | None = None, policy: str = "barrier",
-                 depth: int = 256, max_delay: float = 0.002, device=None):
-        if policy not in ("barrier", "depth"):
-            raise ValueError(f"unknown flush policy {policy!r}")
+    def __init__(self, impl: str | None = None, device=None):
         self.impl = impl
         self.device = resolve_device(device)
-        self.policy = policy
-        self.depth = depth
-        self.max_delay = max_delay
         self._cv = threading.Condition()
         self._queue: list[_Pending] = []
-        self._queued_rows = 0
         self._clients = 0
-        self._timer: threading.Timer | None = None
-        self._timer_gen = 0
-        # optional BrokerObserver (obs/, not yet ported): per-flush
-        # rows/requests/latency
-        self.obs = None
         # accounting
         self.n_flushes = 0
         self.n_dispatches = 0
@@ -220,7 +195,6 @@ class PredictionBroker:
         self.n_requests = 0
         self.max_flush_rows = 0
         self.n_solo_flushes = 0
-        self.n_deadline_flushes = 0
 
     # ------------------------------------------------------------ lifecycle
     def add_clients(self, n: int = 1):
@@ -232,8 +206,7 @@ class PredictionBroker:
         must not hold the barrier open for it."""
         with self._cv:
             self._clients -= 1
-            if self.policy == "barrier" and self._queue \
-                    and len(self._queue) >= max(self._clients, 1):
+            if self._queue and len(self._queue) >= max(self._clients, 1):
                 self._flush_locked()
 
     # ------------------------------------------------------------ serving
@@ -244,81 +217,37 @@ class PredictionBroker:
             return []
         with self._cv:
             self.n_requests += 1
-            if self.policy == "barrier" and self._clients <= 1 \
-                    and not self._queue:
-                # solo client: a barrier round would contain exactly this one
+            if self._clients <= 1 and not self._queue:
+                # solo client: a round would contain exactly this one
                 # request — score it inline (identical flush accounting)
                 # instead of paying the park/notify machinery per request
                 self.n_solo_flushes += 1
-                return self._score_direct(groups)
+                return self._score(groups)
             p = _Pending(groups)
             self._queue.append(p)
-            self._queued_rows += sum(np.asarray(X).shape[0]
-                                     for _, X in groups)
-            if self._should_flush():
+            if len(self._queue) >= max(self._clients, 1):
                 self._flush_locked()
-            elif self.policy == "depth" and self._timer is None:
-                self._arm_timer()
             while not p.done:
                 self._cv.wait()
         if p.error is not None:
             raise p.error
         return p.outs
 
-    def _should_flush(self) -> bool:
-        if self.policy == "barrier":
-            return len(self._queue) >= max(self._clients, 1)
-        return self._queued_rows >= self.depth
-
-    # ------------------------------------------------------------ depth timer
-    def _arm_timer(self):
-        self._timer_gen += 1
-        gen = self._timer_gen
-        t = threading.Timer(self.max_delay, self._deadline_flush, args=(gen,))
-        t.daemon = True
-        self._timer = t
-        t.start()
-
-    def _deadline_flush(self, gen: int):
-        with self._cv:
-            if gen != self._timer_gen:
-                return                        # a depth flush beat the clock
-            self._timer = None
-            if self._queue:
-                self.n_deadline_flushes += 1
-                self._flush_locked()
-
     # ------------------------------------------------------------ flushing
-    def _score_direct(self, groups) -> list:
-        t0 = time.perf_counter()
+    def _score(self, groups) -> list:
         outs, n = score_groups(groups, impl=self.impl, device=self.device)
         rows = sum(np.asarray(X).shape[0] for _, X in groups)
         self.n_flushes += 1
         self.n_dispatches += n
         self.n_rows += rows
         self.max_flush_rows = max(self.max_flush_rows, rows)
-        if self.obs is not None:
-            self.obs.record_flush(rows, 1, n, time.perf_counter() - t0)
         return outs
 
     def _flush_locked(self):
         batch = self._queue
         self._queue = []
-        self._queued_rows = 0
-        self._timer_gen += 1                  # invalidate any pending timer
-        self._timer = None
-        flat = [g for p in batch for g in p.groups]
         try:
-            t0 = time.perf_counter()
-            outs, n = score_groups(flat, impl=self.impl, device=self.device)
-            rows = sum(np.asarray(X).shape[0] for _, X in flat)
-            self.n_flushes += 1
-            self.n_dispatches += n
-            self.n_rows += rows
-            self.max_flush_rows = max(self.max_flush_rows, rows)
-            if self.obs is not None:
-                self.obs.record_flush(rows, len(batch), n,
-                                      time.perf_counter() - t0)
+            outs = self._score([g for p in batch for g in p.groups])
             at = 0
             for p in batch:
                 p.outs = outs[at:at + len(p.groups)]
@@ -333,14 +262,11 @@ class PredictionBroker:
 
     def stats(self) -> dict:
         # deterministic counters only: whether a given flush fired via the
-        # solo bypass or a done()-triggered round (and whether a depth flush
-        # beat its deadline timer) depends on thread interleaving, so the
-        # cause counters (n_solo_flushes / n_deadline_flushes) stay off the
-        # byte-stable SWEEP perf block and are read as attributes instead
+        # solo bypass or a done()-triggered round depends on thread
+        # interleaving, so n_solo_flushes is read as an attribute instead
         return {"flushes": self.n_flushes, "dispatches": self.n_dispatches,
                 "rows": self.n_rows, "requests": self.n_requests,
-                "max_flush_rows": self.max_flush_rows,
-                "policy": self.policy}
+                "max_flush_rows": self.max_flush_rows}
 
 
 class BrokerPredictor(TaskPredictor):
@@ -349,26 +275,11 @@ class BrokerPredictor(TaskPredictor):
     producing bit-identical decisions to the per-decision path."""
 
     def __init__(self, *, broker=None, impl: str | None = None,
-                 max_prime_rows: int = 4096, memo_cap: int = 65536,
-                 fallback_probe_every: int = 64, **kw):
+                 max_prime_rows: int = 4096, memo_cap: int = 65536, **kw):
         super().__init__(**kw)
         self.broker = broker
         self.impl = impl
         self.max_prime_rows = max_prime_rows
-        # graceful degradation (paper behavior: when the failure predictor
-        # is unavailable, schedule anyway — never fail the task).  A broker
-        # that stays unreachable past the client's retry budget flips
-        # ``degraded``; degraded flushes answer p=1.0 for every row, which
-        # is exactly the untrained-model semantics: the ATLAS gate passes
-        # and the base scheduler's proposed placement goes through
-        # deterministically.  Every ``fallback_probe_every``-th degraded
-        # flush retries the broker for real (a logical cadence, no wall
-        # clock) and a success clears the degradation.
-        self.fallback_probe_every = int(fallback_probe_every)
-        self.degraded = False
-        self._probe_countdown = 0
-        self.n_fallbacks = 0
-        self.n_fallback_rows = 0
         # exact-feature memo bound: the memo clears per tick in fleet runs,
         # but a serving-mode predictor (no ticks — e.g. behind the
         # AsyncBroker on an open-loop stream) would otherwise grow it without
@@ -394,19 +305,6 @@ class BrokerPredictor(TaskPredictor):
         self.n_memo_misses = 0
         self.n_memo_evictions = 0
 
-    def frame_stats(self) -> dict:
-        # field order matters: NDJSON frame bytes must match the obs layer's
-        # historical per-frame pred dict exactly (new keys append at the end)
-        return {"dispatches": self.n_dispatches, "rows": self.n_rows_scored,
-                "memo_hits": self.n_memo_hits,
-                "memo_misses": self.n_memo_misses,
-                "demand_rows": self.n_demand_rows,
-                "memo_size": len(self._memo),
-                "memo_evictions": self.n_memo_evictions,
-                "fallbacks": self.n_fallbacks,
-                "retries": getattr(self.broker, "n_retries", 0),
-                "reconnects": getattr(self.broker, "n_reconnects", 0)}
-
     # ------------------------------------------------------------ tick hooks
     def begin_tick(self, sim, extra_keys=()):
         self._memo.clear()
@@ -424,37 +322,10 @@ class BrokerPredictor(TaskPredictor):
     # ------------------------------------------------------------ flushing
     def _flush(self, groups) -> list:
         if self.broker is not None:
-            return self._flush_brokered(groups)
+            return self.broker.submit(groups)
         outs, n = score_groups(groups, impl=self.impl, device=self.device)
         self.n_dispatches += n
         self.n_rows_scored += sum(np.asarray(X).shape[0] for _, X in groups)
-        return outs
-
-    def _flush_brokered(self, groups) -> list:
-        from repro_torch.online.faults import PredictorUnavailableError
-        if not self.degraded or self._probe_countdown <= 0:
-            try:
-                outs = self.broker.submit(groups)
-                self.degraded = False
-                return outs
-            except PredictorUnavailableError:
-                self.degraded = True
-                self._probe_countdown = self.fallback_probe_every
-        else:
-            self._probe_countdown -= 1
-        return self._fallback(groups)
-
-    def _fallback(self, groups) -> list:
-        """Degraded-mode answer: p=1.0 per row (schedule anyway).  Fallback
-        rows do land in the tick memo, but the memo clears every
-        ``begin_tick``, so stale optimism is bounded to one tick after the
-        broker comes back."""
-        self.n_fallbacks += 1
-        outs = []
-        for _, X in groups:
-            rows = np.asarray(X).shape[0]
-            self.n_fallback_rows += rows
-            outs.append(np.ones(rows, np.float32))
         return outs
 
     def _memoize(self, kind: str, X: np.ndarray, probs: np.ndarray,

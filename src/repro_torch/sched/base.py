@@ -28,10 +28,8 @@ class SchedulerStats:
     speculative_copies: int = 0
 
     def to_dict(self) -> dict:
-        """JSON-ready form: field order, ``None``-valued optional extension
-        fields omitted — byte-compatible with the pre-PR8 ad-hoc dicts."""
-        return {k: v for k, v in dataclasses.asdict(self).items()
-                if v is not None}
+        """JSON-ready form, in field order."""
+        return dataclasses.asdict(self)
 
 
 class Scheduler:
@@ -102,12 +100,6 @@ class Scheduler:
         with its Algorithm-1 counters — see :class:`SchedulerStats`)."""
         return SchedulerStats(launches=self.n_launches,
                               speculative_copies=self.n_speculative_copies)
-
-    def frame_stats(self) -> dict:
-        """Cheap live-state snapshot for the obs layer's per-frame gather:
-        ``{"penalty_box": int, "pred": dict | None}``.  Base schedulers have
-        no penalty box and no predictor; ATLAS overrides both fields."""
-        return {"penalty_box": 0, "pred": None}
 
     # --- policy body
     def schedule(self):

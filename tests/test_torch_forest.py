@@ -71,10 +71,13 @@ def test_forest_models_fit_matches_reference(algo):
 
 
 def test_boost_fit_matches_reference():
-    """Boost fits on float residuals with float weights: its split
-    statistics are sums of non-integers, which XLA and torch accumulate in
-    different orders.  The splits agree exactly; the leaf means may differ
-    in the last float32 bits (a few ulp), so they are held to 1e-5."""
+    """Boost fits on float residuals with float weights, so its leaf sums
+    are sums of non-integers.  The splits agree exactly.  The leaf means do
+    not: already in stage 0, with identical inputs and identical splits,
+    the reference's ``_leaf_values`` one-hot dots (XLA's CPU dot) round
+    differently from the port's.  Neither a sequential sum in sample order,
+    a pairwise sum nor 16- or 32-lane partial sums reproduce XLA's order,
+    so the leaves (largest gap about 1.3e-6) are held to 1e-5."""
     X, y = _data(seed=12)
     j = JAX_MODELS["Boost"]().fit(X, y)
     t = TORCH_MODELS["Boost"](device=CPU).fit(X, y)
@@ -96,10 +99,7 @@ def test_forest_infer_ref_bitwise_vs_numpy_mirror(fitted, B):
     got = ref.forest_infer_ref(torch.from_numpy(Xq), *tp.on(CPU)).numpy()
     assert np.array_equal(got, want)
     assert np.array_equal(tforest.forest_predict(tp, Xq, device=CPU), want)
-    sl = slice(3, 17)
-    assert np.array_equal(
-        tforest.forest_predict(tp, Xq, device=CPU, tree_slice=sl),
-        jforest.forest_predict_np(jp, Xq, tree_slice=sl))
+    assert np.array_equal(tforest.forest_predict_np(tp, Xq), want)
 
 
 def _groups(fitted, spec, which, Xq):

@@ -8,6 +8,7 @@ simulator, scheduler, predictor fitting, online retraining and scoring to
 the reference at once."""
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from repro_torch.cluster import experiment as texp
 from repro_torch.convert import predictor_from_snapshot
 from repro_torch.core.predictor import TaskPredictor
 from repro_torch.kernels import ops
-from repro_torch.online.broker import BrokerPredictor
+from repro_torch.online.broker import BrokerPredictor, PredictionBroker
 
 CPU = "cpu"
 
@@ -102,6 +103,38 @@ def test_broker_predictor_matches_task_predictor(cell):
     assert brokered.n_dispatches < scalar.n_dispatches
     assert brokered.n_memo_hits > 0
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_shared_broker_clients_match_task_predictor(cell):
+    """(c') Two ATLAS runs behind one shared PredictionBroker, each on its
+    own thread: barrier rounds fuse their flushes, and each run decides
+    exactly like per-decision scoring."""
+    _, tcfg, _, (_, tdata) = cell
+    scalar = TaskPredictor(**_kw(tcfg), device=CPU)
+    scalar.fit_datasets(*tdata)
+    want, _, _ = texp.run_scheduler("atlas-fifo", tcfg, scalar)
+    shared = PredictionBroker(device=CPU)
+    n_clients = 2
+    shared.add_clients(n_clients)
+    got = [None] * n_clients
+
+    def client(i):
+        try:
+            pred = BrokerPredictor(broker=shared, **_kw(tcfg), device=CPU)
+            pred.fit_datasets(*tdata)
+            got[i], _, _ = texp.run_scheduler("atlas-fifo", tcfg, pred)
+        finally:
+            shared.done()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive(), "shared broker deadlocked"
+    assert got == [want] * n_clients
+    assert shared.n_requests > shared.n_flushes > 0
 
 
 def test_compare_deltas_match(cell):
