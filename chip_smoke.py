@@ -26,6 +26,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
   trace    the 1000-node ATLAS run, scalar and brokered, under
            torch.profiler: the card's idle share and the kernels' own
            device times
+  attn_kernels
+           each attention kernel against its plain version in float32 and
+           bf16 (2e-3 / 2e-2): flash at the prefill shape, a ragged S, a
+           window with D=64 and a right-aligned non-causal case; decode at
+           the serving cache with ragged kv_len and with a window.  Times
+           the kernel, its plain version and PyTorch's
+           scaled_dot_product_attention (a yardstick only) by CUDA events
+  serve_parity
+           the smoke-reduced mistral-nemo-12b (float32, TF32 off): prefill
+           2x16 then 8 greedy decode steps on the card through the kernels,
+           on the card through the plain versions and on the CPU through
+           the plain versions: every attention call within 1e-4 of its
+           plain version, tokens equal, logits within 4x the card-plain vs
+           CPU gap
+  serve    mistral-nemo-12b at full width and depth, bf16, seeded weights:
+           4 requests of 1024 prompt tokens, 64 generated each (one prefill,
+           63 decode steps), through launch/serve.py's generate; exactly 40
+           flash and 2,520 decode launches; the same tokens teacher-forced
+           through the plain versions on the card; a second run with every
+           attention call held to its plain version on the same inputs
+           (2e-2); a plain-vs-plain chunking control and layer 0's softmax
+           saturation; prefill s, decode tok/s, peak memory, and the decode
+           loop's idle share under torch.profiler
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
@@ -50,22 +73,44 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12
 TIMED_ROWS = (1, 13, 4096)
 N_TIMED = 100
 FLEET = 1000
 PARITY_FLEET = 100
-SOURCE = "src/repro_torch/kernels/csrc/forest.cu"
+SOURCES = {"forest_infer": "src/repro_torch/kernels/csrc/forest.cu",
+           "forest_infer_grouped": "src/repro_torch/kernels/csrc/forest.cu",
+           "flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
+           "decode_attention": "src/repro_torch/kernels/csrc/attention.cu"}
 REPLACES = {"forest_infer": "src/repro/kernels/forest.py:70",
-            "forest_infer_grouped": "src/repro/kernels/forest.py:171"}
+            "forest_infer_grouped": "src/repro/kernels/forest.py:171",
+            "flash_attention": "src/repro/kernels/flash_attention.py:91",
+            "decode_attention": "src/repro/kernels/decode_attention.py:70"}
+FOREST_KERNELS = ("forest_infer", "forest_infer_grouped")
 MAIN_ROWS = {"forest_infer": 13, "forest_infer_grouped": 4096}
 # the JAX package's "kitchen_sink" chaos scenario (repro/cluster/scenarios.py),
 # as values: at 100 nodes ATLAS predicts failures under it and relocates
 KITCHEN_SINK = dict(intensity=9.0, kill_tt=0.22, suspend_tt=0.12,
                     kill_dn=0.16, net_slow=0.22, net_drop=0.08,
                     burst_prob=0.10, burst_size=(4, 8), mean_outage=1100.0)
+
+# the serving run: mistral-nemo-12b, 4 requests x (1024 prompt + 64 new)
+SERVE_ARCH = "mistral-nemo-12b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 64
+PROFILED_STEPS = 16
+# (B, S, Skv, H, Hkv, D, causal, window); "main" is the prefill's shape
+FLASH_CASES = {"main": (4, 1024, 1024, 32, 8, 128, True, 0),
+               "ragged": (4, 1000, 1000, 32, 8, 128, True, 0),
+               "window": (4, 1024, 1024, 16, 4, 64, True, 256),
+               "right_aligned": (4, 256, 1024, 32, 8, 128, False, 0)}
+# (B, Smax, H, Hkv, D, window, kv_len); "main" is the last decode step's
+DECODE_CASES = {"main": (4, 1088, 32, 8, 128, 0, (1088,) * 4),
+                "ragged": (4, 1088, 32, 8, 128, 0, (1025, 1088, 1, 530)),
+                "window": (4, 1088, 32, 8, 128, 256, (1088, 700, 256, 3))}
+ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py:17-19
 
 RECORDS: list = []
 
@@ -114,14 +159,14 @@ def _data(n, f, seed):
     return X, y
 
 
-def _time_ms(torch, fn) -> float:
-    """Median CUDA-event time of one call over N_TIMED calls, after warm-up;
-    each event pair brackets one call, host-side launch cost included."""
-    for _ in range(10):
+def _time_ms(torch, fn, n=N_TIMED, warmup=10) -> float:
+    """Median CUDA-event time of one call over n calls, after warm-up; each
+    event pair brackets one call, host-side launch cost included."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(N_TIMED)]
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     for start, end in ev:
         start.record()
         fn()
@@ -150,8 +195,8 @@ def phase_kernels(torch, dev):
     from repro_torch.ml import forest
     from repro_torch.ml.models import Tree
 
-    max_err = dict.fromkeys(ops.KERNELS, 0.0)
-    n_held = dict.fromkeys(ops.KERNELS, 0)
+    max_err = dict.fromkeys(FOREST_KERNELS, 0.0)
+    n_held = dict.fromkeys(FOREST_KERNELS, 0)
 
     def hold(kernel, got, plain, numpy_want):
         check(torch.equal(got, plain), f"{kernel}: kernel != plain version")
@@ -229,7 +274,7 @@ def phase_kernels(torch, dev):
     torch.cuda.synchronize()
 
     # timing at the main path's widths: R.F. (T=24, D=5, F=N_FEATURES)
-    timing = {k: {} for k in ops.KERNELS}
+    timing = {k: {} for k in FOREST_KERNELS}
     for B in TIMED_ROWS:
         sargs = (torch.from_numpy(rows[:B]).to(dev), *rf[0].on(dev))
         half = B // 2
@@ -538,6 +583,443 @@ def phase_trace(torch, dev, cfg, trained):
                            ("forest_infer_grouped", "broker"))}
 
 
+# ---------------------------------------------------------------- serving
+
+def _flash_work(B, S, Skv, H, Hkv, D, causal, window, itemsize):
+    """(bytes, FLOP) the flash function needs on these inputs: q, k, v read
+    once and the output written once; 4*D FLOP (QK and PV) per visible
+    (query, key) pair per head."""
+    qpos = np.arange(S)[:, None] + (Skv - S)
+    kpos = np.arange(Skv)[None, :]
+    vis = np.ones((S, Skv), bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window:
+        vis &= kpos > qpos - window
+    nbytes = itemsize * (2 * B * S * H * D + 2 * B * Skv * Hkv * D)
+    return nbytes, 4.0 * D * H * B * int(vis.sum())
+
+
+def _decode_work(B, Smax, H, Hkv, D, window, lens, itemsize):
+    """(bytes, FLOP) of one decode call: the live K/V rows, q, the output
+    and kv_len; 4*D FLOP per live key per query head."""
+    live = sum(min(n, Smax) - (max(0, n - window) if window else 0)
+               for n in lens)
+    nbytes = itemsize * (2 * live * Hkv * D + 2 * B * H * D) + 4 * B
+    return nbytes, 4.0 * D * H * live
+
+
+def _bound_ms(nbytes, flop, dtype_name):
+    peak = PEAK_BF16_S if dtype_name == "bfloat16" else PEAK_FP32_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flop / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_attn_kernels(torch, dev):
+    """Each attention kernel against its plain version on the card, in
+    float32 and bf16; times at every case by CUDA events: the kernel, the
+    plain version and scaled_dot_product_attention on the same work."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    timing: dict = {"flash_attention": {}, "decode_attention": {}}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def hold(kernel, case, dtype, got, plain):
+        tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
+        err = float((got.float() - plain.float()).abs().max())
+        ok = torch.allclose(got.float(), plain.float(), rtol=tol, atol=tol)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"{kernel} {case} {dtype}: kernel != plain version "
+              f"(max abs err {err})")
+        max_err[kernel] = max(max_err[kernel], err)
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for case, (B, S, Skv, H, Hkv, D, causal, window) in \
+                FLASH_CASES.items():
+            q = rand((B, S, H, D), dtype)
+            k, v = rand((B, Skv, Hkv, D), dtype), rand((B, Skv, Hkv, D), dtype)
+            kw = dict(causal=causal, window=window)
+            got = ops.flash_attention(q, k, v, impl="cuda", **kw)
+            plain = ops.flash_attention(q, k, v, impl="torch", **kw)
+            rec = {"max_abs_err": hold("flash_attention", case, dtype, got,
+                                       plain)}
+            rec["ms"] = _time_ms(
+                torch, lambda: ops.flash_attention(q, k, v, impl="cuda", **kw),
+                n=20, warmup=3)
+            rec["plain_ms"] = _time_ms(
+                torch, lambda: ops.flash_attention(q, k, v, impl="torch",
+                                                   **kw), n=5, warmup=1)
+            library = None
+            if not window and (S == Skv or not causal):
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                library = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), n=20,
+                    warmup=3)
+            rec["library_ms"] = library
+            rec["bound_ms"], rec["bound_by"] = _bound_ms(
+                *_flash_work(B, S, Skv, H, Hkv, D, causal, window,
+                             q.element_size()), dname)
+            timing["flash_attention"][f"{case}/{dname}"] = rec
+            del q, k, v, got, plain
+        for case, (B, Smax, H, Hkv, D, window, lens) in DECODE_CASES.items():
+            q = rand((B, 1, H, D), dtype)
+            k, v = rand((B, Smax, Hkv, D), dtype), rand((B, Smax, Hkv, D),
+                                                        dtype)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = ops.decode_attention(q, k, v, kv_len, window=window,
+                                       impl="cuda")
+            plain = ops.decode_attention(q, k, v, kv_len, window=window,
+                                         impl="torch")
+            rec = {"max_abs_err": hold("decode_attention", case, dtype, got,
+                                       plain)}
+            rec["ms"] = _time_ms(torch, lambda: ops.decode_attention(
+                q, k, v, kv_len, window=window, impl="cuda"))
+            rec["plain_ms"] = _time_ms(torch, lambda: ops.decode_attention(
+                q, k, v, kv_len, window=window, impl="torch"), n=20)
+            library = None
+            if not window and all(n == Smax for n in lens):
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                library = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True))
+            rec["library_ms"] = library
+            rec["bound_ms"], rec["bound_by"] = _bound_ms(
+                *_decode_work(B, Smax, H, Hkv, D, window, lens,
+                              q.element_size()), dname)
+            timing["decode_attention"][f"{case}/{dname}"] = rec
+    torch.cuda.synchronize()
+    emit({"phase": "attn_kernels", "flash_cases": FLASH_CASES,
+          "decode_cases": DECODE_CASES, "timing": timing,
+          "max_abs_err": max_err})
+    return timing, max_err
+
+
+@contextlib.contextmanager
+def _held_attention(torch, errs: dict, tol: float):
+    """While the block runs, every attention call that launches a kernel is
+    also computed by its plain version on the same inputs (before the
+    caller sees the result) and held to ``tol``; the largest gap per kernel
+    goes into ``errs``.  The plain calls are not launches."""
+    from repro_torch.kernels import ops
+    saved = {name: getattr(ops, name) for name in errs}
+
+    def tap(name, fn):
+        def call(*args, impl=None, **kw):
+            out = fn(*args, impl=impl, **kw)
+            if impl is None and out.is_cuda:
+                plain = fn(*args, impl="torch", **kw)
+                err = float((out - plain).abs().max())
+                check(torch.allclose(out, plain, rtol=tol, atol=tol),
+                      f"{name} != its plain version in the model (max abs "
+                      f"err {err})")
+                errs[name] = max(errs[name], err)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, tap(name, fn))
+    try:
+        yield errs
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def phase_serve_parity(torch, dev):
+    """The smoke-reduced mistral-nemo-12b in float32 with TF32 off, from
+    the same weights: the card through the kernels, the card through the
+    plain versions and the CPU through the plain versions.  Every
+    attention call of the kernel run agrees with its plain version on the
+    same inputs within 1e-4; the greedy tokens of the three runs are equal;
+    the kernel run's logits are within four times the gap between the
+    card's plain run and the CPU's.  That gap is float32 summation order
+    (cuBLAS against the CPU's BLAS) amplified by the smoke model's
+    saturated attention scores, and no kernel is in it."""
+    from repro_torch.configs import get_arch, smoke_reduce
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import ShardCtx, get_model
+    from repro_torch.parallel.axes import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_reduce(get_arch(SERVE_ARCH))
+    model = get_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    prompt = serve.prompts(2, 16, cfg.vocab_size, "cpu")
+    call_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    ops.reset_launch_counts()
+    with _held_attention(torch, call_err, 1e-4):
+        card = serve.generate(model, card_params, prompt.to(dev), 9,
+                              device=dev, keep_logits=True)
+    launches = ops.launch_counts()
+    card_plain = serve.generate(model, card_params, prompt.to(dev), 9,
+                                device=dev, keep_logits=True,
+                                ctx=ShardCtx(impl="torch"))
+    cpu = serve.generate(model, cpu_params, prompt, 9, device="cpu",
+                         keep_logits=True)
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["decode_attention"] == 8 * cfg.n_layers,
+          f"serve_parity launches {launches}")
+    check(np.array_equal(card["tokens"], cpu["tokens"])
+          and np.array_equal(card_plain["tokens"], cpu["tokens"]),
+          "serve_parity: card tokens != CPU tokens")
+
+    def gap(a, b):
+        return (a["logits"].cpu() - b["logits"].cpu()).abs().amax(
+            dim=(1, 2)).tolist()
+    kernel_gap, plain_gap = gap(card, cpu), gap(card_plain, cpu)
+    check(all(np.isfinite(kernel_gap)), "serve_parity: logits not finite")
+    check(max(kernel_gap) <= 4 * max(plain_gap) + 1e-4,
+          f"serve_parity: card logits {max(kernel_gap)} from the CPU's, "
+          f"the card's plain path {max(plain_gap)}")
+    emit({"phase": "serve_parity", "arch": cfg.name, "prompt": [2, 16],
+          "decode_steps": 8, "attention_call_max_abs_err": call_err,
+          "logit_gap_kernels_vs_cpu": kernel_gap,
+          "logit_gap_card_plain_vs_cpu": plain_gap,
+          "logit_gap_kernels_vs_card_plain": gap(card, card_plain),
+          "tokens_equal": True, "launches": launches})
+
+
+def _serve_trace(torch, prof) -> tuple:
+    """Device time by kind from a torch.profiler trace, {kind: [n, us]},
+    and the ten kernel names that took the most device time."""
+    from torch.autograd import DeviceType
+    kinds: dict = {}
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name, us = e.name, e.time_range.elapsed_us()
+        low = name.lower()
+        kind = next((k for k in ("flash_attention_kernel",
+                                 "decode_attention_kernel",
+                                 "decode_merge_kernel") if k in name),
+                    "memcpy" if "memcpy" in low or "memset" in low else
+                    "gemm" if any(t in low for t in ("gemm", "nvjet",
+                                                      "cutlass")) else
+                    "other")
+        n_us = kinds.setdefault(kind, [0, 0.0])
+        n_us[0] += 1
+        n_us[1] += us
+        names[name[:80]] = names.get(name[:80], 0.0) + us
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    return kinds, {n: us for n, us in top}
+
+
+def _chunking_control(torch, model, params, prompt, max_len, plain0, dev):
+    """The largest prefill-logit gap between two plain runs that differ only
+    in the float32 chunking of the attention's online softmax (512 and 256
+    positions): how far rounding order alone moves this model's logits."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ShardCtx
+    saved = ops.flash_attention
+
+    def rechunked(q, k, v, *, causal=True, window=0, impl=None):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_chunk=256, kv_chunk=256)
+    ops.flash_attention = rechunked
+    try:
+        logits, _ = model.prefill(params, prompt, max_len=max_len,
+                                  ctx=ShardCtx(impl="torch"), device=dev)
+    finally:
+        ops.flash_attention = saved
+    return float((logits - plain0).abs().max())
+
+
+def _attention_saturation(torch, cfg, params, prompt) -> dict:
+    """How peaked layer 0's causal softmax is on the first prompt under the
+    seeded weights: the score spread and the largest probability per
+    (head, query)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import layer
+    blk = layer(params["blocks"], 0)
+    S = prompt.shape[1]
+    x = L.norm_apply(blk["ln1"], L.embed_apply(params["embed"], prompt[:1]))
+    q, k, _ = L._qkv(blk["attn"], x)
+    pos = torch.arange(S, device=prompt.device)[None]
+    q = L.rope_apply(q, pos, cfg.rope_theta)[:, :, ::cfg.n_heads
+                                             // cfg.n_kv_heads]
+    k = L.rope_apply(k, pos, cfg.rope_theta)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / cfg.resolved_head_dim ** 0.5
+    visible = torch.ones(S, S, dtype=torch.bool, device=s.device).tril()
+    top = torch.softmax(s.masked_fill(~visible, float("-inf")), -1).amax(-1)
+    return {"score_std": float(s[..., visible].std()),
+            "mean_top_prob": float(top.mean()),
+            "share_top_prob_above_0.9": float((top > 0.9).float().mean())}
+
+
+def phase_serve(torch, dev):
+    """mistral-nemo-12b at full width and depth in bf16, seeded weights on
+    the card: 4 x (1024 prompt + 64 generated) tokens through
+    launch/serve.py's generate.  The launch counts are zeroed just before
+    and read just after; then the same tokens go through the plain versions
+    on the card (teacher-forced); a second run holds every attention call
+    against its plain version on the same inputs; a control and the layer-0
+    softmax measure how strongly rounding differences are amplified; then
+    16 decode steps are profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import ShardCtx, get_model, param_count
+    cfg = get_arch(SERVE_ARCH)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    prompt = serve.prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    res = serve.generate(model, params, prompt, SERVE_TOKENS, device=dev,
+                         keep_logits=True)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_layers = cfg.n_layers
+    check(launches["flash_attention"] == n_layers,
+          f"serve: {launches['flash_attention']} flash launches, want "
+          f"{n_layers}")
+    check(launches["decode_attention"] == n_layers * (SERVE_TOKENS - 1),
+          f"serve: {launches['decode_attention']} decode launches, want "
+          f"{n_layers * (SERVE_TOKENS - 1)}")
+    logits, tokens = res["logits"], res["tokens"]
+    check(tuple(logits.shape) == (SERVE_TOKENS, SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "serve: logits not finite")
+    check(tokens.shape == (SERVE_BATCH, SERVE_TOKENS)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          "serve: token ids out of range")
+    del res["cache"]
+
+    # the same tokens through the plain versions, on the card
+    plain_ctx = ShardCtx(impl="torch")
+    tok = torch.from_numpy(tokens).to(dev)
+    max_len = SERVE_PROMPT + SERVE_TOKENS
+    diffs, checked, equal = [], 0, 0
+    t0 = time.perf_counter()
+    ref_logits, cache = model.prefill(params, prompt, max_len=max_len,
+                                      ctx=plain_ctx, device=dev)
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32,
+                     device=dev)
+    plain0 = ref_logits.clone()
+    for step in range(SERVE_TOKENS):
+        if step:
+            ref_logits, cache = model.decode(params, cache,
+                                             tok[:, step - 1:step], pos,
+                                             ctx=plain_ctx, device=dev)
+            pos += 1
+        diff = float((ref_logits - logits[step]).abs().max())
+        top2 = ref_logits.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        decided = margin > 2 * diff
+        same = ref_logits.argmax(-1).cpu().numpy() == tokens[:, step]
+        check(bool(same[decided].all()),
+              f"serve: step {step}: a greedy token differs from the plain "
+              f"path's where its top-2 margin exceeds twice the logit gap "
+              f"{diff}")
+        diffs.append(diff)
+        checked += int(decided.sum())
+        equal += int(same.sum())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del cache
+
+    # every attention call of a second run against its plain version on
+    # the same inputs, at the bf16 tolerance (launches not counted)
+    call_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    with _held_attention(torch, call_err, ATTN_TOL["bfloat16"]):
+        again = serve.generate(model, params, prompt, SERVE_TOKENS,
+                               device=dev)
+    del again["cache"]
+    control_gap = _chunking_control(torch, model, params, prompt, max_len,
+                                    plain0, dev)
+    saturation = _attention_saturation(torch, cfg, params, prompt)
+
+    # a fresh prefill, then the decode loop, each under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits0, cache = model.prefill(params, prompt, max_len=max_len,
+                                       device=dev)
+        torch.cuda.synchronize()
+    prefill_kinds, prefill_top = _serve_trace(torch, prof)
+    step_tok = logits0.argmax(-1)[:, None]
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32,
+                     device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            out, cache = model.decode(params, cache, step_tok, pos, device=dev)
+            step_tok = out.argmax(-1)[:, None]
+            pos += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds, decode_top = _serve_trace(torch, prof)
+    host_top = {a.key[:60]: {"n": a.count, "self_cpu_us": a.self_cpu_time_total}
+                for a in sorted(prof.key_averages(),
+                                key=lambda a: -a.self_cpu_time_total)[:12]}
+    busy_s = sum(us for _, us in kinds.values()) / 1e6
+    decoded = SERVE_BATCH * (SERVE_TOKENS - 1)
+    record = {
+        "phase": "serve", "arch": cfg.name, "params": param_count(cfg),
+        "dtype": str(cfg.dtype).removeprefix("torch."),
+        "requests": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT,
+        "new_tokens": SERVE_TOKENS, "init_s": init_s,
+        "weights_gb": weights_gb, "peak_memory_gb": peak_gb,
+        "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+        "decode_tok_s": decoded / res["decode_s"],
+        "decode_step_ms": 1e3 * res["decode_s"] / (SERVE_TOKENS - 1),
+        "launches": launches,
+        "teacher_forced": {"max_logit_diff_per_step": diffs,
+                           "rows_decided": checked,
+                           "rows_equal_token": equal,
+                           "rows": SERVE_BATCH * SERVE_TOKENS,
+                           "plain_s": plain_s},
+        "attention_call_max_abs_err": call_err,
+        "rerun_tokens_equal": bool(np.array_equal(again["tokens"], tokens)),
+        "plain_chunking_control_prefill_logit_gap": control_gap,
+        "layer0_attention": saturation,
+        "sample": tokens[0, :16].tolist(),
+        "profiled_decode": {
+            "steps": PROFILED_STEPS, "wall_s": wall,
+            "device_busy_s": busy_s,
+            "idle_share": 1.0 - busy_s / wall if kinds else None,
+            "device_us": {k: {"n": n, "total_us": us, "mean_us": us / n}
+                          for k, (n, us) in kinds.items()},
+            "top_kernels_us": decode_top, "top_host_ops": host_top},
+        "profiled_prefill_device_us": {
+            k: {"n": n, "total_us": us, "mean_us": us / n}
+            for k, (n, us) in prefill_kinds.items()},
+        "profiled_prefill_top_kernels_us": prefill_top}
+    emit(record)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    # each kernel's own mean device time per launch on the main path (the
+    # decode kernel's launch is its two passes); None if the profiler saw
+    # no device activity
+    per_call = {"flash_attention": None, "decode_attention": None}
+    pre_us = record["profiled_prefill_device_us"]
+    dec_us = record["profiled_decode"]["device_us"]
+    if "flash_attention_kernel" in pre_us:
+        per_call["flash_attention"] = \
+            pre_us["flash_attention_kernel"]["mean_us"] / 1e3
+    if "decode_attention_kernel" in dec_us:
+        per_call["decode_attention"] = (
+            dec_us["decode_attention_kernel"]["mean_us"]
+            + dec_us.get("decode_merge_kernel", {}).get("mean_us", 0.0)) / 1e3
+    return launches, per_call
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -560,11 +1042,14 @@ def main(argv=None) -> int:
     launches = phase_slice(torch, dev, cfg, base, trained)
     phase_parity(torch, dev)
     device_us = phase_trace(torch, dev, cfg, trained)
+    attn_timing, attn_err = phase_attn_kernels(torch, dev)
+    phase_serve_parity(torch, dev)
+    serve_launches, serve_device_ms = phase_serve(torch, dev)
     kernels = []
     for k in ("forest_infer", "forest_infer_grouped"):
         main_t = timing[k][MAIN_ROWS[k]]
         kernels.append({
-            "name": k, "route": "cuda", "source": SOURCE,
+            "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": max_err[k], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
@@ -573,6 +1058,18 @@ def main(argv=None) -> int:
             "device_ms": (None if device_us[k] is None
                           else device_us[k] / 1e3),
             "by_rows": {str(b): timing[k][b] for b in TIMED_ROWS}})
+    for k in ("flash_attention", "decode_attention"):
+        main_t = attn_timing[k]["main/bfloat16"]
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k], "launches": serve_launches[k],
+            "max_abs_err": attn_err[k], "ms": main_t["ms"],
+            "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
+            "library_ms": main_t["library_ms"],
+            "shape": FLASH_CASES["main"] if k == "flash_attention"
+            else DECODE_CASES["main"],
+            "device_ms": serve_device_ms[k]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if args.out:
         out = pathlib.Path(args.out)

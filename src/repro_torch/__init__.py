@@ -1,5 +1,5 @@
-"""repro_torch — the ATLAS decision loop ported to PyTorch, with its forest
-kernels written by hand in CUDA C++ for Hopper (sm_90a).
+"""repro_torch — the ATLAS decision loop and dense-LM serving ported to
+PyTorch, with their kernels written by hand in CUDA C++ for Hopper (sm_90a).
 
 The JAX package ``repro`` stays the reference; this package mirrors its module
 tree and public names and imports nothing from it.  Ported so far:
@@ -11,9 +11,15 @@ tree and public names and imports nothing from it.  Ported so far:
   ml/          oblivious forests (fit + inference) and the forest-family
                models (Tree, CTree, R.F., Boost).
   online/      the batched prediction broker.
-  kernels/     CUDA forest kernels (csrc/forest.cu), their plain torch
-               versions (ref.py) and the device dispatch (ops.py).
-  convert.py   carries trained parameters across from the JAX package.
+  configs/     the model zoo's ten arch configs and shapes.
+  parallel/    parameter definitions with logical axes; seeded init.
+  models/      the dense decoder LM (layers, prefill, KV-cache decode) and
+               the Model facade; other families raise NotImplementedError.
+  launch/      serve.py: batched prefill, then greedy decode.
+  kernels/     CUDA forest and attention kernels (csrc/), their plain
+               torch versions (ref.py) and the device dispatch (ops.py).
+  convert.py   carries trained predictors and LM parameters across from
+               the JAX package.
 
 Device rule: every entry point that touches tensors takes ``device``;
 ``None`` means CUDA and raises when no GPU is present (see

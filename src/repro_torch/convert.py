@@ -1,17 +1,21 @@
-"""Carry trained parameters across from the JAX package.
+"""Carry parameters across from the JAX package.
 
 The JAX package's predictor serialises its trained state as a plain dict
 (``TaskPredictor.snapshot()`` in ``repro/core/predictor.py``) whose models are
 forest parameter objects with numpy ``feat_idx`` / ``thresholds`` /
-``leaves`` attributes.  These functions read such objects by those attributes
+``leaves`` attributes.  Its model zoo's parameters are nested dicts of
+arrays.  These functions read such objects by those attributes and keys
 alone, so this module imports nothing from the JAX package."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.predictor import TaskPredictor
+from repro_torch.kernels.ops import resolve_device
 from repro_torch.ml.forest import ForestParams
+from repro_torch.parallel.axes import tree_map
 
 
 def forest_params_from_arrays(feat_idx, thresholds, leaves) -> ForestParams:
@@ -35,3 +39,22 @@ def predictor_from_snapshot(snap: dict, *, device=None) -> TaskPredictor:
                 p.feat_idx, p.thresholds, p.leaves)
             for kind, p in snap["models"].items()}}
     return TaskPredictor(device=device).load_snapshot(snap)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":          # ml_dtypes: no numpy cast
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)     # a writable copy
+
+
+def lm_params_from_jax(tree, *, device=None) -> dict:
+    """The port's parameter tree, on ``device`` (None: CUDA, under the
+    port's device rule), from a JAX model-zoo parameter tree (nested dicts
+    of arrays, e.g. ``jax.tree.map(np.asarray, Model.init(key))``).  The
+    two packages share paths, shapes and dtypes, so each leaf is copied as
+    it is; with the result the port's ``Model`` computes the same function
+    as the JAX ``Model`` with ``tree``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), tree)

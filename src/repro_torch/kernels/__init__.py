@@ -1,13 +1,18 @@
 """Hand-written CUDA kernels for Hopper, with their plain torch versions.
 
-  csrc/forest.cu   oblivious-forest inference: single forest and the
-                   block-diagonal multi-model pass (one thread per row)
-  _build.py        nvcc build of csrc/*.cu into build/repro_torch/, keyed by
-                   a hash of the sources and flags
-  forest.py        ctypes launchers with launch counters
-  ref.py           plain torch versions (the CPU path and the kernels' oracle)
-  ops.py           device dispatch: "torch" for CPU tensors, "cuda" for CUDA
-                   tensors; ``resolve_device`` implements the device rule
+  csrc/forest.cu      oblivious-forest inference: single forest and the
+                      block-diagonal multi-model pass (one thread per row)
+  csrc/attention.cu   flash attention (prefill) and split-K decode attention
+                      against a KV cache, GQA, float32 softmax
+  _build.py           nvcc build of csrc/*.cu into build/repro_torch/, keyed
+                      by a hash of the sources and flags
+  forest.py,          ctypes launchers
+  attention.py
+  ref.py              plain torch versions (the CPU path and the kernels'
+                      oracle)
+  ops.py              device dispatch: "torch" for CPU tensors, "cuda" for
+                      CUDA tensors; launch counters; ``resolve_device``
+                      implements the device rule
 """
 
 from repro_torch.kernels import ops, ref

@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``build/repro_torch/`` at the
-root of the checkout.  The file name carries a hash of the sources and the
+root of the checkout: one ``nvcc`` per source, all started together, then
+one link.  The file name carries a hash of the sources and the
 flags, so a change to either builds anew and a stale library is never
 loaded.  The build uses only the sources in the repository.  A missing
 ``nvcc``, a failed compile or a failed load raises: no caller falls back to
@@ -22,7 +23,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -57,26 +58,49 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(jobs: list):
+    """Wait for every (process, command); raise on the first that failed,
+    after all have ended, so that no compiler outlives the build."""
+    failed = None
+    for proc, cmd in jobs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                      f"{output}")
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build() -> pathlib.Path:
-    """Compile the sources unless the library for this hash exists."""
+    """Compile the sources unless the library for this hash exists: every
+    source to an object at once, in parallel, then one shared library."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = nvcc_path()
+    # private names, then a rename: a concurrent build never loads a
+    # half-written library
+    work = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        objs, jobs = [], []
+        for src in sources():
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((_run(cmd), cmd))
+            objs.append(str(obj))
+        _wait(jobs)
+        lib = work / "lib.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *objs]
+        _wait([(_run(cmd), cmd)])
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -94,5 +118,13 @@ def load() -> ctypes.CDLL:
             lib.forest_infer_grouped_launch.argtypes = [
                 p, i, i, p, i, p, p, p, p, i, i, p, p]
             lib.forest_infer_grouped_launch.restype = i
+            lib.flash_attention_launch.argtypes = [
+                p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+            lib.flash_attention_launch.restype = i
+            lib.decode_attention_chunks.argtypes = [i]
+            lib.decode_attention_chunks.restype = i
+            lib.decode_attention_launch.argtypes = [
+                p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
+            lib.decode_attention_launch.restype = i
             _LIB = lib
         return _LIB

@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import ref
 
 IMPLS = ("torch", "cuda")
-KERNELS = ("forest_infer", "forest_infer_grouped")
+KERNELS = ("forest_infer", "forest_infer_grouped", "flash_attention",
+           "decode_attention")
 
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -60,13 +61,14 @@ def _count(kernel: str):
         _LAUNCHES[kernel] += 1
 
 
-def _resolve(impl: str | None, x: torch.Tensor) -> str:
+def _resolve(impl: str | None, x: torch.Tensor, name: str = "x") -> str:
     if impl is None:
         return "cuda" if x.is_cuda else "torch"
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS} or None, got {impl!r}")
     if impl == "cuda" and not x.is_cuda:
-        raise ValueError(f"impl='cuda' needs CUDA tensors; x is on {x.device}")
+        raise ValueError(f"impl='cuda' needs CUDA tensors; {name} is on "
+                         f"{x.device}")
     return impl
 
 
@@ -99,4 +101,26 @@ def forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves, n_trees,
     out = fk.forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves,
                                   n_trees)
     _count("forest_infer_grouped")
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, impl=None):
+    """Blockwise attention, GQA, right-aligned queries: q (B, S, H, D),
+    k/v (B, Skv, Hkv, D) -> (B, S, H, D)."""
+    if _resolve(impl, q, "q") == "torch":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    from repro_torch.kernels import attention as ak
+    out = ak.flash_attention(q, k, v, causal=causal, window=window)
+    _count("flash_attention")
+    return out
+
+
+def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
+    """One query token per sequence against a KV cache: q (B, 1, H, D),
+    k/v (B, Smax, Hkv, D), kv_len (B,) int32 live prefix lengths."""
+    if _resolve(impl, q, "q") == "torch":
+        return ref.decode_attention_ref(q, k, v, kv_len, window=window)
+    from repro_torch.kernels import attention as ak
+    out = ak.decode_attention(q, k, v, kv_len, window=window)
+    _count("decode_attention")
     return out

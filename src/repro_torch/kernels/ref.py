@@ -1,9 +1,9 @@
 """Plain torch versions of the port's kernels.
 
 They serve CPU tensors, and on the card they are the oracle that
-``chip_smoke.py`` holds each CUDA kernel against.  The arithmetic is the
-kernels' own, step for step, so both are bitwise equal to the numpy mirror
-``ml.forest.forest_predict_np``:
+``chip_smoke.py`` holds each CUDA kernel against.  The forest versions'
+arithmetic is the kernels' own, step for step, so both are bitwise equal to
+the numpy mirror ``ml.forest.forest_predict_np``:
 
 - the same float32 compare ``x > threshold``;
 - an exact integer leaf index, level 0 the most significant bit;
@@ -11,11 +11,24 @@ kernels' own, step for step, so both are bitwise equal to the numpy mirror
 - one IEEE division by the float32 tree count.
 
 The last two differ on purpose from the JAX oracle's ``vals.mean(axis=1)``
-(``repro/kernels/ref.py``), whose reduction order depends on the shape."""
+(``repro/kernels/ref.py``), whose reduction order depends on the shape.
+
+The attention versions follow the JAX oracles of ``repro/kernels/ref.py``:
+q (B, S, H, D); k/v (B, Skv, Hkv, D); GQA with H = G * Hkv, query head
+``h`` reading kv head ``h // G``; float32 scores, softmax and accumulators,
+the result cast back to q's dtype.  Masked scores are ``NEG_INF`` (a finite
+-0.7 * float32 max, so a wholly masked block gives exp(0) terms that the
+next live block's rescale wipes) and the denominator is floored at 1e-37.
+Unlike the oracles, neither length needs to be a multiple of a chunk: the
+last chunk is ragged."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def _leaf_index(bits: torch.Tensor) -> torch.Tensor:
@@ -68,3 +81,105 @@ def forest_infer_grouped_ref(x, seg_ids, feat_idx, thresholds, leaves,
     leaf = _leaf_index((g > th).reshape(R, T, D))                 # (R, T)
     vals = torch.gather(leaves.float()[seg], 2, leaf[..., None])[..., 0]
     return _sum_in_tree_order(vals) / n_trees.float()[seg]
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _mask(qpos, kpos, *, causal, window):
+    """(..., Sq, Sk) bool: key kpos is visible from query qpos."""
+    m = torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+    if window:
+        m &= kpos[None, :] > qpos[:, None] - window
+    return m
+
+
+def attention_naive(q, k, v, *, causal=True, window=0):
+    """O(S^2)-memory attention; only for small shapes.  Queries are
+    right-aligned: query i sits at position i + Skv - S."""
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qf = q.float().reshape(B, S, Hkv, G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / math.sqrt(D)
+    qpos = torch.arange(S, device=q.device) + (Skv - S)
+    mask = _mask(qpos, torch.arange(Skv, device=q.device), causal=causal,
+                 window=window)
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_chunk=512,
+                        kv_chunk=512):
+    """Chunked online-softmax attention, float32 accumulators: the plain
+    version of the flash kernel.  Every (q chunk, kv chunk) pair is computed
+    and masked; the kernel skips wholly masked blocks instead."""
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    offset = Skv - S
+    kf, vf = k.float(), v.float()
+    out = torch.empty(B, S, Hkv, G, D, dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, q_chunk):
+        qblk = q[:, q0:q0 + q_chunk].float().reshape(B, -1, Hkv, G, D) * scale
+        qpos = torch.arange(q0, q0 + qblk.shape[1], device=q.device) + offset
+        acc = torch.zeros_like(qblk)
+        m = torch.full(qblk.shape[:-1], NEG_INF, device=q.device)
+        l = torch.zeros(qblk.shape[:-1], device=q.device)
+        for k0 in range(0, Skv, kv_chunk):
+            kblk, vblk = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kblk)
+            kpos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)
+            mask = _mask(qpos, kpos, causal=causal, window=window)
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", p, vblk)
+            m = m_new
+        out[:, q0:q0 + qblk.shape[1]] = acc / torch.clamp(l[..., None],
+                                                          min=1e-37)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, kv_len, *, window=0, kv_chunk=1024):
+    """One query token per sequence against a KV cache: q (B, 1, H, D),
+    k/v (B, Smax, Hkv, D), kv_len (B,) live prefix lengths; positions at or
+    past kv_len, and with a window those at or before kv_len - 1 - window,
+    are masked.  Online softmax over kv chunks, float32 accumulators: the
+    plain version of the decode kernel."""
+    B, _, H, D = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf = (q.float() * scale).reshape(B, Hkv, G, D)
+    lens = kv_len.to(device=q.device, dtype=torch.int64)[:, None]
+    acc = torch.zeros(B, Hkv, G, D, device=q.device)
+    m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
+    l = torch.zeros(B, Hkv, G, device=q.device)
+    for k0 in range(0, Smax, kv_chunk):
+        kblk = k[:, k0:k0 + kv_chunk].float()
+        vblk = v[:, k0:k0 + kv_chunk].float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, kblk)
+        kpos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)[None]
+        mask = kpos < lens
+        if window:
+            mask &= kpos > lens - 1 - window
+        s = torch.where(mask[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vblk)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-37)
+    return out.reshape(B, 1, H, D).to(q.dtype)

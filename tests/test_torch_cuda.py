@@ -1,5 +1,7 @@
-"""The CUDA forest kernels on the card, against their plain torch versions
-and the numpy mirror: bitwise.  Marked ``cuda``; without a GPU they skip.
+"""The CUDA kernels on the card, against their plain torch versions: the
+forest kernels bitwise (and against the numpy mirror), the attention
+kernels within tests/test_kernels.py's tolerances (2e-3 in float32, 2e-2
+in bf16).  Marked ``cuda``; without a GPU they skip.
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py"""
 
@@ -76,3 +78,83 @@ def test_kernel_rejects_bad_input(dev):
         ops.forest_infer(x, fi, th, lv.cpu())
     with pytest.raises(ValueError):
         ops.forest_infer(x.t(), fi, th, lv)
+
+
+# the shapes of chip_smoke.py's attn_kernels phase, plus head_dim 32 (the
+# smoke configs') with an odd group size
+# (B, S, Skv, H, Hkv, D, causal, window)
+FLASH_CASES = {
+    "prefill": (4, 1024, 1024, 32, 8, 128, True, 0),
+    "ragged": (4, 1000, 1000, 32, 8, 128, True, 0),
+    "window": (4, 1024, 1024, 16, 4, 64, True, 256),
+    "right_aligned": (4, 256, 1024, 32, 8, 128, False, 0),
+    "d32_g3": (2, 200, 456, 12, 4, 32, False, 0),
+}
+# (B, Smax, H, Hkv, D, window, kv_len)
+DECODE_CASES = {
+    "serve": (4, 1088, 32, 8, 128, 0, (1088,) * 4),
+    "ragged": (4, 1088, 32, 8, 128, 0, (1025, 1088, 1, 530)),
+    "window": (4, 1088, 32, 8, 128, 256, (1088, 700, 256, 3)),
+    "d32_g2": (2, 300, 4, 2, 32, 0, (17, 300)),
+}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bf16" \
+        else dict(rtol=2e-3, atol=2e-3)
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel(dev, case, dtype):
+    B, S, Skv, H, Hkv, D, causal, window = FLASH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = _randn(gen, (B, S, H, D), dtype, dev)
+    k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+    v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                               impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_kernel(dev, case, dtype):
+    B, Smax, H, Hkv, D, window, lens = DECODE_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = _randn(gen, (B, 1, H, D), dtype, dev)
+    k = _randn(gen, (B, Smax, Hkv, D), dtype, dev)
+    v = _randn(gen, (B, Smax, Hkv, D), dtype, dev)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, kv_len, window=window)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    want = ops.decode_attention(q, k, v, kv_len, window=window, impl="torch")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_attention_kernels_reject_bad_input(dev):
+    q = torch.zeros((1, 8, 4, 48), device=dev)            # D = 48
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 8, 4, 32), device=dev)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q[:, :, :2].half(), q[:, :, :2].half())
+    with pytest.raises(ValueError, match="right-aligned"):
+        ops.flash_attention(q, q[:, :4, :2].contiguous(),
+                            q[:, :4, :2].contiguous())
+    kv_len = torch.ones(1, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        ops.decode_attention(q[:, :1], q[:, :, :2].contiguous(),
+                             q[:, :, :2].contiguous(), kv_len)

@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, smoke_reduce
+from repro_torch.convert import lm_params_from_jax
 from repro_torch.core.predictor import TaskPredictor
 from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import get_model
 from repro_torch.ml import forest as tforest
 from repro_torch.online.broker import BrokerPredictor, PredictionBroker
 
@@ -51,6 +55,31 @@ def test_runs_with_jax_unimportable():
     assert proc.stdout.startswith("ran ")
 
 
+_NO_JAX_SERVE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from repro_torch.launch import serve
+res = serve.main(["--arch", "mistral-nemo-12b", "--batch", "2",
+                  "--prompt-len", "8", "--tokens", "4", "--device", "cpu"])
+assert res["tokens"].shape == (2, 4)
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+"""
+
+
+def test_serves_with_jax_unimportable():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_SERVE], capture_output=True, text=True,
+        timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("[serve] mistral-nemo-12b-smoke: prefill 2x8")
+    assert lines[1].startswith("[serve] sample:")
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -86,6 +115,42 @@ def no_cuda(monkeypatch):
 def test_defaults_raise_without_gpu(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
+
+
+@pytest.fixture(scope="module")
+def smoke_lm():
+    model = get_model(smoke_reduce(get_arch("mistral-nemo-12b")))
+    params = model.init(0, device="cpu")
+    _, cache = model.prefill(params, torch.zeros((1, 4), dtype=torch.long),
+                             max_len=6, device="cpu")
+    return model, params, cache
+
+
+def test_serving_defaults_raise_without_gpu(no_cuda, smoke_lm):
+    model, params, cache = smoke_lm
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    for entry in (lambda: model.init(0),
+                  lambda: model.init_cache(1, 6),
+                  lambda: model.apply(params, tokens),
+                  lambda: model.prefill(params, tokens, max_len=6),
+                  lambda: model.decode(params, cache, tokens[:, :1],
+                                       torch.tensor([4])),
+                  lambda: serve.main(["--arch", "mistral-nemo-12b"]),
+                  lambda: lm_params_from_jax({"w": np.zeros(2, np.float32)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+
+
+def test_attention_cuda_impl_on_cpu_tensor_raises():
+    q = torch.zeros((1, 4, 4, 32))
+    k = torch.zeros((1, 4, 2, 32))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.flash_attention(q, k, k, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.decode_attention(q[:, :1], k, k, torch.tensor([4], dtype=torch.int32),
+                             impl="cuda")
+    assert ops.launch_counts() == before
 
 
 def _forest():

@@ -1,0 +1,282 @@
+"""Parity of the port's dense LM (repro_torch.configs, .parallel.axes,
+.models, .launch.serve) with the JAX package on the CPU.
+
+Configs and parameter trees are compared field for field and path for
+path.  For the smoke-reduced mistral-nemo-12b and stablelm-1.6b (float32),
+the weights are the JAX package's own init from ``jax.random.PRNGKey(0)``,
+carried across by ``convert.lm_params_from_jax``.  Each dense layer is held
+to 1e-5 of its output's scale: the largest difference is at most 1e-5 times
+the largest reference value (the two packages sum the float32 projections
+in different orders, so entries near zero differ by more than 1e-5 of
+themselves).  The whole model (forward, prefill, 8 greedy decode steps) is
+held to rtol 2e-4 / atol 2e-3, the tolerance of
+tests/test_smoke_archs.py."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.models import get_model as jget_model
+from repro.models import layers as JL
+from repro.models import param_count as jparam_count
+from repro_torch import configs as tconfigs
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.launch import serve
+from repro_torch.models import get_model, layers as TL, param_count
+from repro_torch.parallel.axes import init_params, tree_leaves_with_path
+
+CPU = "cpu"
+DENSE = [a for a in tconfigs.ARCH_IDS
+         if tconfigs.get_arch(a).family == "dense"]
+PARITY_ARCHS = ["mistral-nemo-12b", "stablelm-1.6b"]
+MODEL_TOL = dict(rtol=2e-4, atol=2e-3)
+LAYER_TOL = 1e-5
+
+
+def _as_dict(cfg) -> dict:
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = str(jnp.dtype(cfg.dtype)) if not isinstance(
+        cfg.dtype, torch.dtype) else str(cfg.dtype).removeprefix("torch.")
+    return d
+
+
+@pytest.mark.parametrize("arch_id", jconfigs.ARCH_IDS)
+def test_arch_config_matches_reference(arch_id):
+    j, t = jconfigs.get_arch(arch_id), tconfigs.get_arch(arch_id)
+    assert _as_dict(t) == _as_dict(j)
+    assert _as_dict(tconfigs.smoke_reduce(t)) \
+        == _as_dict(jconfigs.smoke_reduce(j))
+    for name, shape in jconfigs.SHAPES.items():
+        assert dataclasses.asdict(tconfigs.SHAPES[name]) \
+            == dataclasses.asdict(shape)
+        assert tconfigs.cell_supported(t, tconfigs.SHAPES[name]) \
+            == jconfigs.cell_supported(j, shape)
+
+
+def test_arch_ids_and_dtypes():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    cfg = tconfigs.get_arch("mistral-nemo-12b")
+    assert cfg.dtype is torch.bfloat16
+    assert tconfigs.smoke_reduce(cfg).dtype is torch.float32
+
+
+def test_param_count_mistral_nemo():
+    cfg = tconfigs.get_arch("mistral-nemo-12b")
+    assert param_count(cfg) == 12_247_782_400
+    assert cfg.param_count() == jparam_count(jconfigs.get_arch(cfg.name))
+
+
+@pytest.mark.parametrize("reduce", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch_id", DENSE)
+def test_param_tree_paths_and_shapes(arch_id, reduce):
+    j, t = jconfigs.get_arch(arch_id), tconfigs.get_arch(arch_id)
+    if reduce:
+        j, t = jconfigs.smoke_reduce(j), tconfigs.smoke_reduce(t)
+    want = {tuple(k.key for k in path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_leaves_with_path(
+                jget_model(j).abstract_params())}
+    got = {path: (tuple(leaf.shape), str(leaf.dtype).removeprefix("torch."))
+           for path, leaf in tree_leaves_with_path(
+               get_model(t).abstract_params())}
+    assert got == want
+    assert all(leaf.device.type == "meta" for _, leaf in
+               tree_leaves_with_path(get_model(t).abstract_params()))
+    # the logical axes stay on the definitions, as the reference's
+    jdefs, tdefs = jget_model(j).param_defs(), get_model(t).param_defs()
+    assert tdefs["blocks"]["attn"]["wq"].axes \
+        == jdefs["blocks"]["attn"]["wq"].axes \
+        == ("layers", "embed", "heads", "head_dim")
+
+
+@pytest.mark.parametrize("arch_id", [a for a in tconfigs.ARCH_IDS
+                                     if a not in DENSE])
+def test_unported_families_raise(arch_id):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_model(tconfigs.smoke_reduce(tconfigs.get_arch(arch_id)))
+
+
+def test_init_params_rules_and_seeding():
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch("mistral-nemo-12b"))
+    defs = get_model(cfg).param_defs()
+    a = init_params(defs, 0, torch.float32, CPU)
+    b = init_params(defs, 0, torch.float32, CPU)
+    c = init_params(defs, 1, torch.float32, CPU)
+    for (path, x), (_, y), (_, z) in zip(tree_leaves_with_path(a),
+                                         tree_leaves_with_path(b),
+                                         tree_leaves_with_path(c)):
+        assert torch.equal(x, y), path
+        if path[-1] != "scale":
+            assert not torch.equal(x, z), path
+    blocks = a["blocks"]
+    assert torch.equal(blocks["ln1"]["scale"], torch.ones(4, 128))
+    # scaled: scale / sqrt(shape[-2]); normal: 0.02
+    wu = blocks["mlp"]["wu"]                                  # (4, 128, 256)
+    assert abs(wu.std().item() - 128 ** -0.5) < 0.01
+    assert not torch.equal(wu[0], wu[1])                      # per layer
+    assert abs(a["embed"]["embedding"].std().item() - 0.02) < 0.002
+
+
+# ---------------------------------------------------------------------------
+# numerics against the JAX model, weights carried across
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=PARITY_ARCHS)
+def pair(request):
+    jcfg = jconfigs.smoke_reduce(jconfigs.get_arch(request.param))
+    jmodel = jget_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = lm_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                 device=CPU)
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch(request.param))
+    return jcfg, jmodel, jparams, cfg, get_model(cfg), tparams
+
+
+def _np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def _layer_close(got, want):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= LAYER_TOL * scale, (err, scale)
+
+
+def _x(rs, *shape):
+    a = rs.randn(*shape).astype(np.float32)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def test_layers_match_reference(pair):
+    jcfg, _, jp, cfg, _, tp = pair
+    jblk = jax.tree.map(lambda a: a[1], jp["blocks"])
+    tblk = {k: {n: t[1] for n, t in v.items()} for k, v in tp["blocks"].items()}
+    rs = np.random.RandomState(0)
+    B, S, hd = 2, 12, cfg.resolved_head_dim
+    jx, tx = _x(rs, B, S, cfg.d_model)
+    _layer_close(TL.norm_apply(tblk["ln1"], tx),
+                 jax.jit(JL.norm_apply)(jblk["ln1"], jx))
+    jq, tq = _x(rs, B, S, cfg.n_heads, hd)
+    pos = np.arange(S)[None].repeat(B, 0)
+    _layer_close(TL.rope_apply(tq, torch.from_numpy(pos), cfg.rope_theta),
+                 jax.jit(JL.rope_apply, static_argnums=2)(
+                     jq, jnp.asarray(pos), jcfg.rope_theta))
+    _layer_close(TL.mlp_apply(tblk["mlp"], tx), jax.jit(JL.mlp_apply)(jblk["mlp"], jx))
+    # the LayerNorm and GELU variants (no dense config uses them) and the
+    # tied LM head, on the same weights
+    ln = {"scale": jblk["ln2"]["scale"], "bias": jblk["ln1"]["scale"] - 1.5}
+    _layer_close(TL.norm_apply(lm_params_from_jax(ln, device=CPU), tx),
+                 jax.jit(JL.norm_apply)(ln, jx))
+    gelu = {k: jblk["mlp"][k] for k in ("wu", "wd")}
+    _layer_close(TL.mlp_apply(lm_params_from_jax(gelu, device=CPU), tx),
+                 jax.jit(JL.mlp_apply)(gelu, jx))
+    tied = {"embedding": jp["embed"]["embedding"]}
+    _layer_close(TL.lm_head_apply(lm_params_from_jax(tied, device=CPU), tx),
+                 jax.jit(JL.lm_head_apply)(tied, jx))
+    cache_len = S + 4
+    ty, (tk, tv) = TL.attn_prefill(tblk["attn"], tx,
+                                   positions=torch.from_numpy(pos),
+                                   theta=cfg.rope_theta, cache_len=cache_len)
+    jy, (jk, jv) = jax.jit(JL.attn_prefill,
+                           static_argnames=("theta", "cache_len"))(
+        jblk["attn"], jx, positions=jnp.asarray(pos), theta=jcfg.rope_theta,
+        cache_len=cache_len)
+    for got, want in ((ty, jy), (tk, jk), (tv, jv)):
+        _layer_close(got, want)
+    # one decode step at ragged positions, into the prefilled caches
+    jx1, tx1 = _x(rs, B, 1, cfg.d_model)
+    p1 = np.array([S, S - 3], np.int32)
+    ty1, (tk1, _) = TL.attn_decode(tblk["attn"], tx1, tk, tv,
+                                   torch.from_numpy(p1), theta=cfg.rope_theta)
+    jy1, (jk1, _) = jax.jit(JL.attn_decode, static_argnames=("theta",))(
+        jblk["attn"], jx1, jk, jv, jnp.asarray(p1), theta=jcfg.rope_theta)
+    _layer_close(ty1, jy1)
+    _layer_close(tk1, jk1)
+    assert tk1 is tk                               # updated in place
+
+
+def test_model_matches_reference(pair):
+    """apply, prefill and 8 greedy decode steps: logits within the smoke
+    tolerance, greedy tokens equal."""
+    _, jmodel, jp, cfg, model, tp = pair
+    B, S, steps = 2, 16, 8
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S + 1))
+    apply = jax.jit(jmodel.apply)
+    prefill = jax.jit(jmodel.prefill, static_argnames=("max_len",))
+    decode = jax.jit(jmodel.decode)
+    jl, _ = apply(jp, jnp.asarray(toks, jnp.int32))
+    tl, aux = model.apply(tp, torch.from_numpy(toks), device=CPU)
+    assert tl.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(_np(tl), _np(jl), **MODEL_TOL)
+
+    jlog, jcache = prefill(jp, jnp.asarray(toks[:, :S], jnp.int32),
+                           max_len=S + steps)
+    tlog, tcache = model.prefill(tp, torch.from_numpy(toks[:, :S]),
+                                 max_len=S + steps, device=CPU)
+    np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]),
+                                   **MODEL_TOL)
+    pos = np.full((B,), S, np.int32)
+    for _ in range(steps):
+        jtok = np.asarray(jnp.argmax(jlog, -1))[:, None]
+        ttok = tlog.argmax(-1)[:, None]
+        assert np.array_equal(ttok.numpy(), jtok)
+        jlog, jcache = decode(jp, jcache, jnp.asarray(jtok, jnp.int32),
+                              jnp.asarray(pos))
+        tlog, tcache = model.decode(tp, tcache, ttok, pos, device=CPU)
+        np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+        pos = pos + 1
+    np.testing.assert_allclose(_np(tcache["k"]), _np(jcache["k"]),
+                               **MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch_id", DENSE)
+def test_decode_matches_prefill_tail(arch_id):
+    """The port's own KV-cache path (its own seeded init): prefill S tokens,
+    decode token S; the logits match a full forward's last position (as
+    tests/test_smoke_archs.py holds the reference)."""
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch(arch_id))
+    model = get_model(cfg)
+    params = model.init(0, device=CPU)
+    B, S = 2, 16
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
+    want, _ = model.apply(params, tokens, device=CPU)
+    _, cache = model.prefill(params, tokens[:, :S], max_len=S + 1, device=CPU)
+    got, _ = model.decode(params, cache, tokens[:, S:], torch.full((B,), S),
+                          device=CPU)
+    np.testing.assert_allclose(_np(got), _np(want[:, -1]), **MODEL_TOL)
+
+
+def test_serve_main_on_cpu(capsys):
+    res = serve.main(["--arch", "mistral-nemo-12b", "--batch", "2",
+                      "--prompt-len", "8", "--tokens", "5", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2
+    assert lines[0].startswith("[serve] mistral-nemo-12b-smoke: prefill 2x8 "
+                               "in ")
+    assert "decoded 10 tokens in" in lines[0]
+    assert lines[1].startswith("[serve] sample: [")
+    assert res["tokens"].shape == (2, 5)
+    assert res["cache"]["k"].shape == (4, 2, 13, 2, 32)
+
+
+def test_generate_is_greedy_decode():
+    """generate's tokens are the argmax chain of prefill + decode."""
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch("stablelm-1.6b"))
+    model = get_model(cfg)
+    params = model.init(3, device=CPU)
+    prompt = serve.prompts(2, 6, cfg.vocab_size, CPU)
+    res = serve.generate(model, params, prompt, 4, device=CPU,
+                         keep_logits=True)
+    assert res["logits"].shape == (4, 2, cfg.vocab_size)
+    assert np.array_equal(res["tokens"], res["logits"].argmax(-1).T.numpy())
+    logits, cache = model.prefill(params, prompt, max_len=10, device=CPU)
+    assert torch.equal(logits, res["logits"][0])
