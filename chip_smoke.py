@@ -49,6 +49,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
            (2e-2); a plain-vs-plain chunking control and layer 0's softmax
            saturation; prefill s, decode tok/s, peak memory, and the decode
            loop's idle share under torch.profiler
+  scan_kernels
+           the RWKV6 and Mamba2 scan kernels against their plain versions in
+           float32 and bf16 (y 5e-3 / 5e-2, the float32 state 1e-3): the
+           serving prefill shape, tests/test_kernels.py's scan cases and a
+           ragged S = 1000; the sequence in two calls with the state carried
+           equals one call; the kernel and its plain version timed by CUDA
+           events (no single PyTorch call computes either recurrence)
+  recurrent_serve_parity
+           the smoke-reduced rwkv6-1.6b and zamba2-1.2b, as serve_parity:
+           every kernel call within 1e-4 of its plain version, tokens equal
+           on card-kernel, card-plain and CPU, logits within 4x the
+           card-plain vs CPU gap
+  serve_rwkv6, serve_zamba2
+           each model at full width and depth, bf16, seeded weights, the
+           traffic of serve (4 x (1024 + 64) tokens) through generate;
+           exactly 24 rwkv6_scan launches, and 38 mamba2_ssd + 7 flash + 441
+           decode launches; the same tokens teacher-forced through the plain
+           versions (the logit gap reported; tokens held where the top-2
+           margin exceeds twice it); a second run with every kernel call held
+           to its plain version (bf16 tolerances); prefill s, decode tok/s,
+           ms per step, peak memory, each kernel's device time in a profiled
+           prefill and the decode loop's idle share
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
@@ -84,11 +106,15 @@ PARITY_FLEET = 100
 SOURCES = {"forest_infer": "src/repro_torch/kernels/csrc/forest.cu",
            "forest_infer_grouped": "src/repro_torch/kernels/csrc/forest.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
-           "decode_attention": "src/repro_torch/kernels/csrc/attention.cu"}
+           "decode_attention": "src/repro_torch/kernels/csrc/attention.cu",
+           "rwkv6_scan": "src/repro_torch/kernels/csrc/recurrence.cu",
+           "mamba2_ssd": "src/repro_torch/kernels/csrc/recurrence.cu"}
 REPLACES = {"forest_infer": "src/repro/kernels/forest.py:70",
             "forest_infer_grouped": "src/repro/kernels/forest.py:171",
             "flash_attention": "src/repro/kernels/flash_attention.py:91",
-            "decode_attention": "src/repro/kernels/decode_attention.py:70"}
+            "decode_attention": "src/repro/kernels/decode_attention.py:70",
+            "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:52",
+            "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:49"}
 FOREST_KERNELS = ("forest_infer", "forest_infer_grouped")
 MAIN_ROWS = {"forest_infer": 13, "forest_infer_grouped": 4096}
 # the JAX package's "kitchen_sink" chaos scenario (repro/cluster/scenarios.py),
@@ -111,6 +137,25 @@ DECODE_CASES = {"main": (4, 1088, 32, 8, 128, 0, (1088,) * 4),
                 "ragged": (4, 1088, 32, 8, 128, 0, (1025, 1088, 1, 530)),
                 "window": (4, 1088, 32, 8, 128, 256, (1088, 700, 256, 3))}
 ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py:17-19
+
+# the recurrent serving runs, the same traffic as SERVE_ARCH's
+RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
+SCAN_KERNELS = ("rwkv6_scan", "mamba2_ssd")
+# (B, S, H, Dh) and (B, S, H, P, N): "main" is the serving prefill's shape,
+# k16/k64/k32 tests/test_kernels.py:86-155's cases, then a ragged S
+RWKV_CASES = {"main": (4, 1024, 32, 64), "k16": (1, 64, 2, 16),
+              "k64": (2, 128, 4, 64), "k32": (1, 256, 8, 32),
+              "ragged": (4, 1000, 32, 64)}
+SSD_CASES = {"main": (4, 1024, 64, 64, 64), "k16": (1, 64, 2, 16, 16),
+             "k64": (2, 128, 4, 64, 64), "k32": (1, 256, 8, 32, 16),
+             "ragged": (4, 1000, 64, 64, 64)}
+SCAN_TOL = {"float32": 5e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:105-110
+STATE_TOL = 1e-3                                 # the float32 final state
+# float32 operations per state element per step, an FMA counted as 2.
+# rwkv6: k v, u (k v), S + u k v, r * (...) and its sum, w S, + k v;
+# mamba2: exp(dt A) S, (dt x) B, the sum, S C and its sum
+RWKV_OPS_PER_ELEMENT = 7
+SSD_OPS_PER_ELEMENT = 5
 
 RECORDS: list = []
 
@@ -701,24 +746,32 @@ def phase_attn_kernels(torch, dev):
 
 
 @contextlib.contextmanager
-def _held_attention(torch, errs: dict, tol: float):
-    """While the block runs, every attention call that launches a kernel is
-    also computed by its plain version on the same inputs (before the
-    caller sees the result) and held to ``tol``; the largest gap per kernel
-    goes into ``errs``.  The plain calls are not launches."""
+def _held_kernels(torch, errs: dict, tols: dict):
+    """While the block runs, every call of a kernel named in ``tols`` that
+    launches it is also computed by its plain version on the same inputs
+    (before the caller sees the result) and each output is held to its
+    tolerance, ``tols[name]`` holding one per output (a scan's y, then its
+    float32 state).  The largest gap per output goes into ``errs``, the
+    state's under ``<name>_state``.  The plain calls are not launches."""
     from repro_torch.kernels import ops
-    saved = {name: getattr(ops, name) for name in errs}
+    saved = {name: getattr(ops, name) for name in tols}
 
     def tap(name, fn):
         def call(*args, impl=None, **kw):
             out = fn(*args, impl=impl, **kw)
-            if impl is None and out.is_cuda:
+            outs = out if isinstance(out, tuple) else (out,)
+            if impl is None and outs[0].is_cuda:
                 plain = fn(*args, impl="torch", **kw)
-                err = float((out - plain).abs().max())
-                check(torch.allclose(out, plain, rtol=tol, atol=tol),
-                      f"{name} != its plain version in the model (max abs "
-                      f"err {err})")
-                errs[name] = max(errs[name], err)
+                plains = plain if isinstance(plain, tuple) else (plain,)
+                for i, (o, p, tol) in enumerate(zip(outs, plains,
+                                                    tols[name])):
+                    key = name if i == 0 else f"{name}_state"
+                    o, p = o.float(), p.float()
+                    err = float((o - p).abs().max())
+                    check(torch.allclose(o, p, rtol=tol, atol=tol),
+                          f"{key} != its plain version in the model (max "
+                          f"abs err {err})")
+                    errs[key] = max(errs.get(key, 0.0), err)
             return out
         return call
 
@@ -726,9 +779,79 @@ def _held_attention(torch, errs: dict, tol: float):
         setattr(ops, name, tap(name, fn))
     try:
         yield errs
+        unheld = sorted(set(tols) - set(errs))
+        check(not unheld, f"no call of {unheld} was held to its plain "
+              "version")
     finally:
         for name, fn in saved.items():
             setattr(ops, name, fn)
+
+
+def _expected_launches(cfg, decode_steps: int) -> dict:
+    """The launches of one generate run of ``cfg``: every kernel's count,
+    zero for those its family does not run."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import n_shared_invocations
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        want = {"flash_attention": L, "decode_attention": L * decode_steps}
+    elif cfg.family == "ssm":
+        want = {"rwkv6_scan": L}
+    else:
+        n = n_shared_invocations(cfg)
+        want = {"mamba2_ssd": L, "flash_attention": n,
+                "decode_attention": n * decode_steps}
+    return {**dict.fromkeys(ops.KERNELS, 0), **want}
+
+
+def _serve_parity(torch, dev, arch: str) -> dict:
+    """One smoke-reduced arch in float32 from the same weights: the card
+    through the kernels, the card through the plain versions and the CPU
+    through the plain versions (see phase_serve_parity)."""
+    from repro_torch.configs import get_arch, smoke_reduce
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import ShardCtx, get_model
+    from repro_torch.parallel.axes import tree_map
+    cfg = smoke_reduce(get_arch(arch))
+    model = get_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    prompt = serve.prompts(2, 16, cfg.vocab_size, "cpu")
+    want = _expected_launches(cfg, 8)
+    call_err: dict = {}
+    ops.reset_launch_counts()
+    with _held_kernels(torch, call_err, {
+            k: (1e-4, 1e-4) for k, n in want.items() if n}):
+        card = serve.generate(model, card_params, prompt.to(dev), 9,
+                              device=dev, keep_logits=True)
+    launches = ops.launch_counts()
+    card_plain = serve.generate(model, card_params, prompt.to(dev), 9,
+                                device=dev, keep_logits=True,
+                                ctx=ShardCtx(impl="torch"))
+    cpu = serve.generate(model, cpu_params, prompt, 9, device="cpu",
+                         keep_logits=True)
+    check(launches == want, f"{arch} serve_parity launches {launches}, "
+          f"want {want}")
+    check(np.array_equal(card["tokens"], cpu["tokens"])
+          and np.array_equal(card_plain["tokens"], cpu["tokens"]),
+          f"{arch} serve_parity: card tokens != CPU tokens")
+
+    def gap(a, b):
+        return (a["logits"].cpu() - b["logits"].cpu()).abs().amax(
+            dim=(1, 2)).tolist()
+    kernel_gap, plain_gap = gap(card, cpu), gap(card_plain, cpu)
+    check(all(np.isfinite(kernel_gap)), f"{arch} serve_parity: logits not "
+          "finite")
+    check(max(kernel_gap) <= 4 * max(plain_gap) + 1e-4,
+          f"{arch} serve_parity: card logits {max(kernel_gap)} from the "
+          f"CPU's, the card's plain path {max(plain_gap)}")
+    return {"arch": cfg.name, "prompt": [2, 16], "decode_steps": 8,
+            "kernel_call_max_abs_err": call_err,
+            "logit_gap_kernels_vs_cpu": kernel_gap,
+            "logit_gap_card_plain_vs_cpu": plain_gap,
+            "logit_gap_kernels_vs_card_plain": gap(card, card_plain),
+            "tokens_equal": True, "launches": launches}
 
 
 def phase_serve_parity(torch, dev):
@@ -741,50 +864,9 @@ def phase_serve_parity(torch, dev):
     card's plain run and the CPU's.  That gap is float32 summation order
     (cuBLAS against the CPU's BLAS) amplified by the smoke model's
     saturated attention scores, and no kernel is in it."""
-    from repro_torch.configs import get_arch, smoke_reduce
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    from repro_torch.models import ShardCtx, get_model
-    from repro_torch.parallel.axes import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = smoke_reduce(get_arch(SERVE_ARCH))
-    model = get_model(cfg)
-    cpu_params = model.init(0, device="cpu")
-    card_params = tree_map(lambda t: t.to(dev), cpu_params)
-    prompt = serve.prompts(2, 16, cfg.vocab_size, "cpu")
-    call_err = {"flash_attention": 0.0, "decode_attention": 0.0}
-    ops.reset_launch_counts()
-    with _held_attention(torch, call_err, 1e-4):
-        card = serve.generate(model, card_params, prompt.to(dev), 9,
-                              device=dev, keep_logits=True)
-    launches = ops.launch_counts()
-    card_plain = serve.generate(model, card_params, prompt.to(dev), 9,
-                                device=dev, keep_logits=True,
-                                ctx=ShardCtx(impl="torch"))
-    cpu = serve.generate(model, cpu_params, prompt, 9, device="cpu",
-                         keep_logits=True)
-    check(launches["flash_attention"] == cfg.n_layers
-          and launches["decode_attention"] == 8 * cfg.n_layers,
-          f"serve_parity launches {launches}")
-    check(np.array_equal(card["tokens"], cpu["tokens"])
-          and np.array_equal(card_plain["tokens"], cpu["tokens"]),
-          "serve_parity: card tokens != CPU tokens")
-
-    def gap(a, b):
-        return (a["logits"].cpu() - b["logits"].cpu()).abs().amax(
-            dim=(1, 2)).tolist()
-    kernel_gap, plain_gap = gap(card, cpu), gap(card_plain, cpu)
-    check(all(np.isfinite(kernel_gap)), "serve_parity: logits not finite")
-    check(max(kernel_gap) <= 4 * max(plain_gap) + 1e-4,
-          f"serve_parity: card logits {max(kernel_gap)} from the CPU's, "
-          f"the card's plain path {max(plain_gap)}")
-    emit({"phase": "serve_parity", "arch": cfg.name, "prompt": [2, 16],
-          "decode_steps": 8, "attention_call_max_abs_err": call_err,
-          "logit_gap_kernels_vs_cpu": kernel_gap,
-          "logit_gap_card_plain_vs_cpu": plain_gap,
-          "logit_gap_kernels_vs_card_plain": gap(card, card_plain),
-          "tokens_equal": True, "launches": launches})
+    emit({"phase": "serve_parity", **_serve_parity(torch, dev, SERVE_ARCH)})
 
 
 def _serve_trace(torch, prof) -> tuple:
@@ -800,7 +882,8 @@ def _serve_trace(torch, prof) -> tuple:
         low = name.lower()
         kind = next((k for k in ("flash_attention_kernel",
                                  "decode_attention_kernel",
-                                 "decode_merge_kernel") if k in name),
+                                 "decode_merge_kernel", "rwkv6_scan_kernel",
+                                 "mamba2_ssd_kernel") if k in name),
                     "memcpy" if "memcpy" in low or "memset" in low else
                     "gemm" if any(t in low for t in ("gemm", "nvjet",
                                                       "cutlass")) else
@@ -856,62 +939,25 @@ def _attention_saturation(torch, cfg, params, prompt) -> dict:
             "share_top_prob_above_0.9": float((top > 0.9).float().mean())}
 
 
-def phase_serve(torch, dev):
-    """mistral-nemo-12b at full width and depth in bf16, seeded weights on
-    the card: 4 x (1024 prompt + 64 generated) tokens through
-    launch/serve.py's generate.  The launch counts are zeroed just before
-    and read just after; then the same tokens go through the plain versions
-    on the card (teacher-forced); a second run holds every attention call
-    against its plain version on the same inputs; a control and the layer-0
-    softmax measure how strongly rounding differences are amplified; then
-    16 decode steps are profiled."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    from repro_torch.models import ShardCtx, get_model, param_count
-    cfg = get_arch(SERVE_ARCH)
-    model = get_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weights_gb = torch.cuda.memory_allocated() / 1e9
-    prompt = serve.prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, dev)
-    torch.cuda.reset_peak_memory_stats()
-
-    ops.reset_launch_counts()
-    res = serve.generate(model, params, prompt, SERVE_TOKENS, device=dev,
-                         keep_logits=True)
-    launches = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_layers = cfg.n_layers
-    check(launches["flash_attention"] == n_layers,
-          f"serve: {launches['flash_attention']} flash launches, want "
-          f"{n_layers}")
-    check(launches["decode_attention"] == n_layers * (SERVE_TOKENS - 1),
-          f"serve: {launches['decode_attention']} decode launches, want "
-          f"{n_layers * (SERVE_TOKENS - 1)}")
-    logits, tokens = res["logits"], res["tokens"]
-    check(tuple(logits.shape) == (SERVE_TOKENS, SERVE_BATCH, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "serve: logits not finite")
-    check(tokens.shape == (SERVE_BATCH, SERVE_TOKENS)
-          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
-          "serve: token ids out of range")
-    del res["cache"]
-
-    # the same tokens through the plain versions, on the card
+def _teacher_forced(torch, model, params, prompt, res, dev) -> tuple:
+    """The tokens of ``res`` (a generate run with kept logits) fed through
+    the plain versions on the card: prefill, then one decode step per
+    token.  Per step, the largest logit gap to the kernel run; wherever the
+    plain path's top-2 margin exceeds twice that gap the greedy token must
+    be the same.  Returns the record and the plain prefill's logits."""
+    from repro_torch.models import ShardCtx
     plain_ctx = ShardCtx(impl="torch")
+    logits, tokens = res["logits"], res["tokens"]
+    B, S = prompt.shape
+    n_tokens = tokens.shape[1]
     tok = torch.from_numpy(tokens).to(dev)
-    max_len = SERVE_PROMPT + SERVE_TOKENS
     diffs, checked, equal = [], 0, 0
     t0 = time.perf_counter()
-    ref_logits, cache = model.prefill(params, prompt, max_len=max_len,
+    ref_logits, cache = model.prefill(params, prompt, max_len=S + n_tokens,
                                       ctx=plain_ctx, device=dev)
-    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32,
-                     device=dev)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
     plain0 = ref_logits.clone()
-    for step in range(SERVE_TOKENS):
+    for step in range(n_tokens):
         if step:
             ref_logits, cache = model.decode(params, cache,
                                              tok[:, step - 1:step], pos,
@@ -930,21 +976,17 @@ def phase_serve(torch, dev):
         checked += int(decided.sum())
         equal += int(same.sum())
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    del cache
+    return ({"max_logit_diff_per_step": diffs, "rows_decided": checked,
+             "rows_equal_token": equal, "rows": B * n_tokens,
+             "plain_s": time.perf_counter() - t0}, plain0)
 
-    # every attention call of a second run against its plain version on
-    # the same inputs, at the bf16 tolerance (launches not counted)
-    call_err = {"flash_attention": 0.0, "decode_attention": 0.0}
-    with _held_attention(torch, call_err, ATTN_TOL["bfloat16"]):
-        again = serve.generate(model, params, prompt, SERVE_TOKENS,
-                               device=dev)
-    del again["cache"]
-    control_gap = _chunking_control(torch, model, params, prompt, max_len,
-                                    plain0, dev)
-    saturation = _attention_saturation(torch, cfg, params, prompt)
 
-    # a fresh prefill, then the decode loop, each under the profiler
+def _profiled_serving(torch, model, params, prompt, max_len, dev) -> dict:
+    """A fresh prefill, then PROFILED_STEPS decode steps, each under
+    torch.profiler: device time by kind, the top kernels, the top host ops
+    and the decode loop's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    B, S = prompt.shape
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         logits0, cache = model.prefill(params, prompt, max_len=max_len,
@@ -952,8 +994,7 @@ def phase_serve(torch, dev):
         torch.cuda.synchronize()
     prefill_kinds, prefill_top = _serve_trace(torch, prof)
     step_tok = logits0.argmax(-1)[:, None]
-    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32,
-                     device=dev)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -969,55 +1010,309 @@ def phase_serve(torch, dev):
                 for a in sorted(prof.key_averages(),
                                 key=lambda a: -a.self_cpu_time_total)[:12]}
     busy_s = sum(us for _, us in kinds.values()) / 1e6
-    decoded = SERVE_BATCH * (SERVE_TOKENS - 1)
-    record = {
-        "phase": "serve", "arch": cfg.name, "params": param_count(cfg),
-        "dtype": str(cfg.dtype).removeprefix("torch."),
-        "requests": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT,
-        "new_tokens": SERVE_TOKENS, "init_s": init_s,
-        "weights_gb": weights_gb, "peak_memory_gb": peak_gb,
-        "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
-        "decode_tok_s": decoded / res["decode_s"],
-        "decode_step_ms": 1e3 * res["decode_s"] / (SERVE_TOKENS - 1),
-        "launches": launches,
-        "teacher_forced": {"max_logit_diff_per_step": diffs,
-                           "rows_decided": checked,
-                           "rows_equal_token": equal,
-                           "rows": SERVE_BATCH * SERVE_TOKENS,
-                           "plain_s": plain_s},
-        "attention_call_max_abs_err": call_err,
-        "rerun_tokens_equal": bool(np.array_equal(again["tokens"], tokens)),
-        "plain_chunking_control_prefill_logit_gap": control_gap,
-        "layer0_attention": saturation,
-        "sample": tokens[0, :16].tolist(),
-        "profiled_decode": {
-            "steps": PROFILED_STEPS, "wall_s": wall,
-            "device_busy_s": busy_s,
-            "idle_share": 1.0 - busy_s / wall if kinds else None,
-            "device_us": {k: {"n": n, "total_us": us, "mean_us": us / n}
-                          for k, (n, us) in kinds.items()},
-            "top_kernels_us": decode_top, "top_host_ops": host_top},
-        "profiled_prefill_device_us": {
-            k: {"n": n, "total_us": us, "mean_us": us / n}
-            for k, (n, us) in prefill_kinds.items()},
-        "profiled_prefill_top_kernels_us": prefill_top}
-    emit(record)
-    del params, cache, logits
-    torch.cuda.empty_cache()
-    # each kernel's own mean device time per launch on the main path (the
-    # decode kernel's launch is its two passes); None if the profiler saw
-    # no device activity
-    per_call = {"flash_attention": None, "decode_attention": None}
+
+    def by_kind(kinds):
+        return {k: {"n": n, "total_us": us, "mean_us": us / n}
+                for k, (n, us) in kinds.items()}
+    return {"profiled_decode": {
+                "steps": PROFILED_STEPS, "wall_s": wall,
+                "device_busy_s": busy_s,
+                "idle_share": 1.0 - busy_s / wall if kinds else None,
+                "device_us": by_kind(kinds),
+                "top_kernels_us": decode_top, "top_host_ops": host_top},
+            "profiled_prefill_device_us": by_kind(prefill_kinds),
+            "profiled_prefill_top_kernels_us": prefill_top}
+
+
+def _per_call_ms(record) -> dict:
+    """Each kernel's own mean device time per launch on the main path, from
+    the profiled prefill and decode (the decode kernel's launch is its two
+    passes); None where the profiler saw none."""
     pre_us = record["profiled_prefill_device_us"]
     dec_us = record["profiled_decode"]["device_us"]
-    if "flash_attention_kernel" in pre_us:
-        per_call["flash_attention"] = \
-            pre_us["flash_attention_kernel"]["mean_us"] / 1e3
+    out = {}
+    for k, trace in (("flash_attention", pre_us), ("rwkv6_scan", pre_us),
+                     ("mamba2_ssd", pre_us)):
+        kind = trace.get(f"{k}_kernel")
+        out[k] = None if kind is None else kind["mean_us"] / 1e3
+    out["decode_attention"] = None
     if "decode_attention_kernel" in dec_us:
-        per_call["decode_attention"] = (
+        out["decode_attention"] = (
             dec_us["decode_attention_kernel"]["mean_us"]
             + dec_us.get("decode_merge_kernel", {}).get("mean_us", 0.0)) / 1e3
-    return launches, per_call
+    return out
+
+
+def _serve_setup(torch, dev, arch):
+    """The full-width model of ``arch`` with seeded weights on the card,
+    the serving prompt, and what that took."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    cfg = get_arch(arch)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    prompt = serve.prompts(SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, dev)
+    torch.cuda.reset_peak_memory_stats()
+    return cfg, model, params, prompt, init_s, weights_gb
+
+
+def _serve_main_run(torch, dev, cfg, model, params, prompt) -> tuple:
+    """The main path: generate with the launch counts zeroed just before
+    and read just after; exactly the expected launches, finite logits,
+    tokens in range."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launch_counts()
+    res = serve.generate(model, params, prompt, SERVE_TOKENS, device=dev,
+                         keep_logits=True)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = _expected_launches(cfg, SERVE_TOKENS - 1)
+    check(launches == want, f"serve {cfg.name}: launches {launches}, want "
+          f"{want}")
+    logits, tokens = res["logits"], res["tokens"]
+    check(tuple(logits.shape) == (SERVE_TOKENS, SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"serve {cfg.name}: logits not finite")
+    check(tokens.shape == (SERVE_BATCH, SERVE_TOKENS)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          f"serve {cfg.name}: token ids out of range")
+    del res["cache"]
+    return res, launches, peak_gb
+
+
+def _serve_record(phase, cfg, init_s, weights_gb, peak_gb, res, launches):
+    from repro_torch.models import param_count
+    decoded = SERVE_BATCH * (SERVE_TOKENS - 1)
+    return {"phase": phase, "arch": cfg.name, "params": param_count(cfg),
+            "dtype": str(cfg.dtype).removeprefix("torch."),
+            "requests": SERVE_BATCH, "prompt_tokens": SERVE_PROMPT,
+            "new_tokens": SERVE_TOKENS, "init_s": init_s,
+            "weights_gb": weights_gb, "peak_memory_gb": peak_gb,
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "decode_tok_s": decoded / res["decode_s"],
+            "decode_step_ms": 1e3 * res["decode_s"] / (SERVE_TOKENS - 1),
+            "launches": launches,
+            "sample": res["tokens"][0, :16].tolist()}
+
+
+def phase_serve(torch, dev):
+    """mistral-nemo-12b at full width and depth in bf16, seeded weights on
+    the card: 4 x (1024 prompt + 64 generated) tokens through
+    launch/serve.py's generate.  The launch counts are zeroed just before
+    and read just after; then the same tokens go through the plain versions
+    on the card (teacher-forced); a second run holds every attention call
+    against its plain version on the same inputs; a control and the layer-0
+    softmax measure how strongly rounding differences are amplified; then
+    16 decode steps are profiled."""
+    from repro_torch.launch import serve
+    cfg, model, params, prompt, init_s, weights_gb = _serve_setup(
+        torch, dev, SERVE_ARCH)
+    res, launches, peak_gb = _serve_main_run(torch, dev, cfg, model, params,
+                                             prompt)
+    teacher, plain0 = _teacher_forced(torch, model, params, prompt, res, dev)
+
+    # every attention call of a second run against its plain version on
+    # the same inputs, at the bf16 tolerance (launches not counted)
+    call_err: dict = {}
+    tol = (ATTN_TOL["bfloat16"],)
+    with _held_kernels(torch, call_err, {"flash_attention": tol,
+                                         "decode_attention": tol}):
+        again = serve.generate(model, params, prompt, SERVE_TOKENS,
+                               device=dev)
+    del again["cache"]
+    max_len = SERVE_PROMPT + SERVE_TOKENS
+    control_gap = _chunking_control(torch, model, params, prompt, max_len,
+                                    plain0, dev)
+    saturation = _attention_saturation(torch, cfg, params, prompt)
+    record = {
+        **_serve_record("serve", cfg, init_s, weights_gb, peak_gb, res,
+                        launches),
+        "teacher_forced": teacher,
+        "attention_call_max_abs_err": call_err,
+        "rerun_tokens_equal": bool(np.array_equal(again["tokens"],
+                                                  res["tokens"])),
+        "plain_chunking_control_prefill_logit_gap": control_gap,
+        "layer0_attention": saturation,
+        **_profiled_serving(torch, model, params, prompt, max_len, dev)}
+    emit(record)
+    del params, res
+    torch.cuda.empty_cache()
+    per_call = _per_call_ms(record)
+    return launches, {k: per_call[k] for k in ("flash_attention",
+                                               "decode_attention")}
+
+
+# ---------------------------------------------------------------- recurrent
+
+def _rwkv_inputs(torch, gen, B, S, H, Dh, dtype, dev):
+    """tests/test_kernels.py's distributions: r, k, v, state0 normal,
+    w = sigmoid(2 z), u = 0.3 z."""
+    r, k, v = (torch.randn((B, S, H, Dh), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    w = torch.sigmoid(2 * torch.randn((B, S, H, Dh), generator=gen,
+                                      device=dev)).to(dtype)
+    u = (0.3 * torch.randn((H, Dh), generator=gen, device=dev)).to(dtype)
+    s0 = torch.randn((B, H, Dh, Dh), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+def _ssd_inputs(torch, gen, B, S, H, P, N, dtype, dev):
+    """x, B, C, state0 normal, dt = softplus(z), A = -exp(0.5 z), as
+    tests/test_kernels.py."""
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (B, S, H), generator=gen, device=dev)).to(dtype)
+    A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device=dev))
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    s0 = torch.randn((B, H, P, N), generator=gen, device=dev)
+    return x, dt, A, Bm, Cm, s0
+
+
+def _rwkv_work(B, S, H, Dh, itemsize):
+    """(bytes, FLOP) of one WKV6 scan: r, k, v, w read once, y written once
+    and u read once in the model's dtype, the two float32 states;
+    RWKV_OPS_PER_ELEMENT per state element per step."""
+    nbytes = itemsize * (5 * B * S * H * Dh + H * Dh) + 8 * B * H * Dh * Dh
+    return nbytes, float(RWKV_OPS_PER_ELEMENT) * B * S * H * Dh * Dh
+
+
+def _ssd_work(B, S, H, P, N, itemsize):
+    """(bytes, FLOP) of one SSD scan: x read and y written, dt, B and C read
+    in the model's dtype, A and the two states in float32;
+    SSD_OPS_PER_ELEMENT per state element per step."""
+    nbytes = itemsize * (2 * B * S * H * P + B * S * H + 2 * B * S * N) \
+        + 4 * H + 8 * B * H * P * N
+    return nbytes, float(SSD_OPS_PER_ELEMENT) * B * S * H * P * N
+
+
+def phase_scan_kernels(torch, dev):
+    """Each scan kernel against its plain version on the card, in float32
+    and bf16, at every case of RWKV_CASES / SSD_CASES; the state carried
+    across two calls equals one call; times of the kernel and its plain
+    version by CUDA events.  Bounds use the float32 rate in both dtypes:
+    the recurrences compute in float32 on the CUDA cores."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = dict.fromkeys(SCAN_KERNELS, 0.0)
+    state_err = dict.fromkeys(SCAN_KERNELS, 0.0)
+    timing: dict = {k: {} for k in SCAN_KERNELS}
+    plan = (("rwkv6_scan", RWKV_CASES, _rwkv_inputs, _rwkv_work,
+             ops.rwkv6_scan),
+            ("mamba2_ssd", SSD_CASES, _ssd_inputs, _ssd_work, ops.mamba2_ssd))
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        tol = SCAN_TOL[dname]
+        for kernel, cases, inputs, work, fn in plan:
+            for case, shape in cases.items():
+                args = inputs(torch, gen, *shape, dtype, dev)
+                y, st = fn(*args, impl="cuda")
+                py, pst = fn(*args, impl="torch")
+                ey = float((y.float() - py.float()).abs().max())
+                es = float((st - pst).abs().max())
+                check(torch.allclose(y.float(), py.float(), rtol=tol,
+                                     atol=tol)
+                      and bool(torch.isfinite(y).all()),
+                      f"{kernel} {case} {dname}: y != plain version (max "
+                      f"abs err {ey})")
+                check(torch.allclose(st, pst, rtol=STATE_TOL, atol=STATE_TOL),
+                      f"{kernel} {case} {dname}: state != plain version "
+                      f"(max abs err {es})")
+                max_err[kernel] = max(max_err[kernel], ey)
+                state_err[kernel] = max(state_err[kernel], es)
+                rec = {"max_abs_err": ey, "state_max_abs_err": es}
+                rec["ms"] = _time_ms(torch, lambda: fn(*args, impl="cuda"),
+                                     n=20, warmup=3)
+                rec["plain_ms"] = _time_ms(
+                    torch, lambda: fn(*args, impl="torch"), n=3, warmup=1)
+                rec["library_ms"] = None
+                rec["bound_ms"], rec["bound_by"] = _bound_ms(
+                    *work(*shape, args[0].element_size()), "float32")
+                timing[kernel][f"{case}/{dname}"] = rec
+                del args, y, st, py, pst
+    # the sequence in two calls, the state carried, equals one call
+    cut = 77
+    r, k, v, w, u, s0 = _rwkv_inputs(torch, gen, 2, 301, 4, 64,
+                                     torch.float32, dev)
+    y, st = ops.rwkv6_scan(r, k, v, w, u, s0, impl="cuda")
+    y1, s1 = ops.rwkv6_scan(*(t[:, :cut].contiguous() for t in (r, k, v, w)),
+                            u, s0, impl="cuda")
+    y2, s2 = ops.rwkv6_scan(*(t[:, cut:].contiguous() for t in (r, k, v, w)),
+                            u, s1, impl="cuda")
+    check(torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st),
+          "rwkv6_scan: a carried state != one call")
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(torch, gen, 2, 301, 4, 32, 64,
+                                       torch.float32, dev)
+    y, st = ops.mamba2_ssd(x, dt, A, Bm, Cm, s0, impl="cuda")
+    y1, s1 = ops.mamba2_ssd(*(t[:, :cut].contiguous() for t in (x, dt)), A,
+                            *(t[:, :cut].contiguous() for t in (Bm, Cm)), s0,
+                            impl="cuda")
+    y2, s2 = ops.mamba2_ssd(*(t[:, cut:].contiguous() for t in (x, dt)), A,
+                            *(t[:, cut:].contiguous() for t in (Bm, Cm)), s1,
+                            impl="cuda")
+    check(torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st),
+          "mamba2_ssd: a carried state != one call")
+    torch.cuda.synchronize()
+    emit({"phase": "scan_kernels", "rwkv_cases": RWKV_CASES,
+          "ssd_cases": SSD_CASES, "timing": timing, "max_abs_err": max_err,
+          "state_max_abs_err": state_err, "state_carry_equal": True,
+          "ops_per_element": {"rwkv6_scan": RWKV_OPS_PER_ELEMENT,
+                              "mamba2_ssd": SSD_OPS_PER_ELEMENT}})
+    return timing, max_err, state_err
+
+
+def phase_recurrent_serve_parity(torch, dev):
+    """serve_parity for the smoke-reduced rwkv6-1.6b and zamba2-1.2b
+    (float32, TF32 off for matmuls and cuDNN)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "recurrent_serve_parity",
+          **{arch: _serve_parity(torch, dev, arch)
+             for arch in RECURRENT_ARCHS}})
+
+
+def phase_serve_recurrent(torch, dev, arch: str) -> tuple:
+    """``arch`` at full width and depth in bf16, seeded weights on the card,
+    the traffic of phase_serve: the main run (exact launches), the same
+    tokens teacher-forced through the plain versions (the logit gap
+    reported, not held: zamba2's shared attention is saturated under the
+    reference's init, as nemo's), a second run with every kernel call held
+    to its plain version at the bf16 tolerances, and a profiled prefill and
+    decode loop."""
+    from repro_torch.launch import serve
+    phase = "serve_" + arch.split("-")[0]
+    cfg, model, params, prompt, init_s, weights_gb = _serve_setup(
+        torch, dev, arch)
+    res, launches, peak_gb = _serve_main_run(torch, dev, cfg, model, params,
+                                             prompt)
+    teacher, _ = _teacher_forced(torch, model, params, prompt, res, dev)
+    call_err: dict = {}
+    tols = {k: (SCAN_TOL["bfloat16"], STATE_TOL) for k in SCAN_KERNELS}
+    tols.update({k: (ATTN_TOL["bfloat16"],)
+                 for k in ("flash_attention", "decode_attention")})
+    with _held_kernels(torch, call_err, {k: t for k, t in tols.items()
+                                         if launches[k]}):
+        again = serve.generate(model, params, prompt, SERVE_TOKENS,
+                               device=dev)
+    del again["cache"]
+    max_len = SERVE_PROMPT + SERVE_TOKENS
+    record = {
+        **_serve_record(phase, cfg, init_s, weights_gb, peak_gb, res,
+                        launches),
+        "teacher_forced": teacher, "kernel_call_max_abs_err": call_err,
+        "rerun_tokens_equal": bool(np.array_equal(again["tokens"],
+                                                  res["tokens"])),
+        **_profiled_serving(torch, model, params, prompt, max_len, dev)}
+    emit(record)
+    del params, res
+    torch.cuda.empty_cache()
+    return launches, _per_call_ms(record), call_err
 
 
 def main(argv=None) -> int:
@@ -1045,6 +1340,12 @@ def main(argv=None) -> int:
     attn_timing, attn_err = phase_attn_kernels(torch, dev)
     phase_serve_parity(torch, dev)
     serve_launches, serve_device_ms = phase_serve(torch, dev)
+    scan_timing, scan_err, scan_state_err = phase_scan_kernels(torch, dev)
+    phase_recurrent_serve_parity(torch, dev)
+    recurrent = {arch: phase_serve_recurrent(torch, dev, arch)
+                 for arch in RECURRENT_ARCHS}
+    rwkv_launches, rwkv_ms, _ = recurrent["rwkv6-1.6b"]
+    zamba_launches, zamba_ms, _ = recurrent["zamba2-1.2b"]
     kernels = []
     for k in ("forest_infer", "forest_infer_grouped"):
         main_t = timing[k][MAIN_ROWS[k]]
@@ -1062,14 +1363,30 @@ def main(argv=None) -> int:
         main_t = attn_timing[k]["main/bfloat16"]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k], "launches": serve_launches[k],
+            "replaces": REPLACES[k],
+            "launches": serve_launches[k] + zamba_launches[k],
+            "launches_by_path": {"serve": serve_launches[k],
+                                 "serve_zamba2": zamba_launches[k]},
             "max_abs_err": attn_err[k], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
             "library_ms": main_t["library_ms"],
             "shape": FLASH_CASES["main"] if k == "flash_attention"
             else DECODE_CASES["main"],
-            "device_ms": serve_device_ms[k]})
+            "device_ms": serve_device_ms[k],
+            "device_ms_zamba2": zamba_ms[k]})
+    for k, launches, device_ms, cases in (
+            ("rwkv6_scan", rwkv_launches, rwkv_ms, RWKV_CASES),
+            ("mamba2_ssd", zamba_launches, zamba_ms, SSD_CASES)):
+        main_t = scan_timing[k]["main/bfloat16"]
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k], "launches": launches[k],
+            "max_abs_err": scan_err[k],
+            "state_max_abs_err": scan_state_err[k], "ms": main_t["ms"],
+            "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"], "library_ms": None,
+            "shape": cases["main"], "device_ms": device_ms[k]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if args.out:
         out = pathlib.Path(args.out)

@@ -1,5 +1,6 @@
-"""repro_torch — the ATLAS decision loop and dense-LM serving ported to
-PyTorch, with their kernels written by hand in CUDA C++ for Hopper (sm_90a).
+"""repro_torch — the ATLAS decision loop and LM serving (dense, RWKV6 and the
+Mamba2 hybrid) ported to PyTorch, with their kernels written by hand in
+CUDA C++ for Hopper (sm_90a).
 
 The JAX package ``repro`` stays the reference; this package mirrors its module
 tree and public names and imports nothing from it.  Ported so far:
@@ -13,10 +14,11 @@ tree and public names and imports nothing from it.  Ported so far:
   online/      the batched prediction broker.
   configs/     the model zoo's ten arch configs and shapes.
   parallel/    parameter definitions with logical axes; seeded init.
-  models/      the dense decoder LM (layers, prefill, KV-cache decode) and
-               the Model facade; other families raise NotImplementedError.
+  models/      the dense, ssm (RWKV6) and hybrid (Mamba2 + shared
+               attention) LMs (layers, prefill, cached decode) and the
+               Model facade; other families raise NotImplementedError.
   launch/      serve.py: batched prefill, then greedy decode.
-  kernels/     CUDA forest and attention kernels (csrc/), their plain
+  kernels/     CUDA forest, attention and scan kernels (csrc/), their plain
                torch versions (ref.py) and the device dispatch (ops.py).
   convert.py   carries trained predictors and LM parameters across from
                the JAX package.

@@ -4,10 +4,13 @@
                       block-diagonal multi-model pass (one thread per row)
   csrc/attention.cu   flash attention (prefill) and split-K decode attention
                       against a KV cache, GQA, float32 softmax
+  csrc/recurrence.cu  the RWKV6 (WKV6) and Mamba2 (SSD) scans, one block per
+                      (batch row, head), the state in registers
   _build.py           nvcc build of csrc/*.cu into build/repro_torch/, keyed
                       by a hash of the sources and flags
   forest.py,          ctypes launchers
-  attention.py
+  attention.py,
+  recurrence.py
   ref.py              plain torch versions (the CPU path and the kernels'
                       oracle)
   ops.py              device dispatch: "torch" for CPU tensors, "cuda" for

@@ -20,7 +20,7 @@ from repro_torch.kernels import ref
 
 IMPLS = ("torch", "cuda")
 KERNELS = ("forest_infer", "forest_infer_grouped", "flash_attention",
-           "decode_attention")
+           "decode_attention", "rwkv6_scan", "mamba2_ssd")
 
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -123,4 +123,28 @@ def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
     from repro_torch.kernels import attention as ak
     out = ak.decode_attention(q, k, v, kv_len, window=window)
     _count("decode_attention")
+    return out
+
+
+def rwkv6_scan(r, k, v, w, u, state0, *, impl=None):
+    """WKV6 recurrence: r, k, v, w (B, S, H, Dh); u (H, Dh); state0
+    (B, H, Dh, Dh) float32 -> (y (B, S, H, Dh) in r's dtype, final state
+    float32)."""
+    if _resolve(impl, r, "r") == "torch":
+        return ref.rwkv6_scan_ref(r, k, v, w, u, state0)
+    from repro_torch.kernels import recurrence as rk
+    out = rk.rwkv6_scan(r, k, v, w, u, state0)
+    _count("rwkv6_scan")
+    return out
+
+
+def mamba2_ssd(x, dt, A, B, C, state0, *, impl=None):
+    """SSD recurrence: x (B, S, H, P); dt (B, S, H); A (H,) float32; B, C
+    (B, S, N); state0 (B, H, P, N) float32 -> (y (B, S, H, P) in x's dtype,
+    final state float32)."""
+    if _resolve(impl, x) == "torch":
+        return ref.mamba2_ssd_ref(x, dt, A, B, C, state0)
+    from repro_torch.kernels import recurrence as rk
+    out = rk.mamba2_ssd(x, dt, A, B, C, state0)
+    _count("mamba2_ssd")
     return out

@@ -20,7 +20,11 @@ the result cast back to q's dtype.  Masked scores are ``NEG_INF`` (a finite
 -0.7 * float32 max, so a wholly masked block gives exp(0) terms that the
 next live block's rescale wipes) and the denominator is floored at 1e-37.
 Unlike the oracles, neither length needs to be a multiple of a chunk: the
-last chunk is ragged."""
+last chunk is ragged.
+
+The recurrences (RWKV6's WKV6 scan, Mamba2's SSD scan and their one-step
+decode forms) are the reference's forward oracles: a loop over t in
+float32, y cast back to the input's dtype."""
 
 from __future__ import annotations
 
@@ -183,3 +187,74 @@ def decode_attention_ref(q, k, v, kv_len, *, window=0, kv_chunk=1024):
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-37)
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Recurrences: RWKV6 (WKV6) and Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+#
+# Forward only, sequential in t, in float32, with y cast back to the input's
+# dtype: the reference's oracles (repro/kernels/ref.py:rwkv6_scan_ref,
+# mamba2_ssd_ref) without their custom VJPs, which come with training.
+
+def rwkv6_scan_ref(r, k, v, w, u, state0):
+    """Sequential WKV6: per head, y_t = r_t (S_{t-1} + diag(u) k_t^T v_t),
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t.
+
+    r, k, v, w: (B, S, H, Dh); u: (H, Dh); state0: (B, H, Dh, Dh) float32
+    [key x value dims].  Returns y (B, S, H, Dh) in r's dtype and the final
+    state in float32."""
+    B, S, H, Dh = r.shape
+    uf = u.float()[None, :, :, None]
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    state = state0.float()
+    y = torch.empty(B, S, H, Dh, dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B, H, Dh, Dh)
+        y[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv)
+        state = wf[:, t, :, :, None] * state + kv
+    return y.to(r.dtype), state
+
+
+def rwkv6_step_ref(r, k, v, w, u, state):
+    """One decode step: r, k, v, w (B, H, Dh); state (B, H, Dh, Dh).
+    Returns y (B, H, Dh) in r's dtype and the new float32 state."""
+    kv = k.float()[..., :, None] * v.float()[..., None, :]
+    sf = state.float()
+    y = torch.einsum("bhk,bhkv->bhv", r.float(),
+                     sf + u.float()[None, :, :, None] * kv)
+    return y.to(r.dtype), w.float()[..., :, None] * sf + kv
+
+
+def mamba2_ssd_ref(x, dt, A, Bmat, Cmat, state0):
+    """Sequential SSD: per head h with state (P, N),
+    S_t = exp(dt_t A_h) S_{t-1} + dt_t x_t B_t^T,  y_t = S_t C_t.
+
+    x: (B, S, H, P); dt: (B, S, H); A: (H,) (negative); B, C: (B, S, N);
+    state0: (B, H, P, N) float32.  Returns y (B, S, H, P) in x's dtype and
+    the final state in float32."""
+    Bb, S, H, P = x.shape
+    Af = A.float()[None, :]
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, Bmat, Cmat))
+    state = state0.float()
+    y = torch.empty(Bb, S, H, P, dtype=torch.float32, device=x.device)
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af)                       # (B, H)
+        inject = (dtf[:, t, :, None] * xf[:, t])[..., :, None] \
+            * bf[:, t, None, None, :]
+        state = decay[..., None, None] * state + inject         # (B, H, P, N)
+        y[:, t] = torch.einsum("bhpn,bn->bhp", state, cf[:, t])
+    return y.to(x.dtype), state
+
+
+def mamba2_step_ref(x, dt, A, Bvec, Cvec, state):
+    """One decode step: x (B, H, P); dt (B, H); B, C (B, N); state
+    (B, H, P, N).  Returns y (B, H, P) in x's dtype and the new float32
+    state."""
+    dtf = dt.float()
+    decay = torch.exp(dtf * A.float()[None, :])
+    inject = (dtf[..., None] * x.float())[..., :, None] \
+        * Bvec.float()[:, None, None, :]
+    state = decay[..., None, None] * state.float() + inject
+    y = torch.einsum("bhpn,bn->bhp", state, Cvec.float())
+    return y.to(x.dtype), state

@@ -1,15 +1,17 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [options]``.
 
 The port's copy of ``repro/launch/serve.py``: seeded random weights, a
-batch of random prompts, one batched prefill, then greedy KV-cache decode,
-``tokens - 1`` steps.  It prints the same two lines as the reference.
-Reduced (smoke) configs by default; ``--full-config`` serves the published
-widths and depth.  ``--device`` defaults to CUDA and raises without a GPU;
-``--device cpu`` runs the plain torch versions on the CPU.  Only the dense
-family is ported.
+batch of random prompts, one batched prefill, then greedy decode against
+the cache (KV cache, or the recurrent state), ``tokens - 1`` steps.  It
+prints the same two lines as the reference.  Reduced (smoke) configs by
+default; ``--full-config`` serves the published widths and depth.
+``--device`` defaults to CUDA and raises without a GPU; ``--device cpu``
+runs the plain torch versions on the CPU.  The dense, ssm (rwkv6-1.6b) and
+hybrid (zamba2-1.2b) families are ported; the code is family-blind.
 
     python -m repro_torch.launch.serve --arch mistral-nemo-12b --full-config
-    python -m repro_torch.launch.serve --arch mistral-nemo-12b --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --full-config
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
-"""Model-zoo building blocks, the dense subset, in PyTorch.
+"""Model-zoo building blocks in PyTorch: the dense, RWKV6 and Mamba2 subset.
 
-The port's copy of ``repro/models/layers.py`` for the dense decoder: norms,
-RoPE, attention (full sequence, prefill with a KV cache, cached decode),
-the MLPs, embedding and LM head.  Every block exposes
-``<block>_defs(...) -> tree[ParamDef]`` and apply functions on tensors, with
-the reference's names, parameter layouts and arithmetic: norms and RoPE
+The port's copy of ``repro/models/layers.py`` for the dense decoder (norms,
+RoPE, attention for the full sequence, prefill with a KV cache and cached
+decode, the MLPs, embedding and LM head), RWKV6's time and channel mix and
+the Mamba2 block.  Every block exposes ``<block>_defs(...) ->
+tree[ParamDef]`` and apply functions on tensors, with the reference's
+names, parameter layouts and arithmetic: norms, RoPE and the activations
 compute in float32 and cast back; projections are ``torch.einsum`` (the
-reference leaves them to XLA, outside any Pallas kernel); attention goes
-through ``kernels.ops``, which launches the CUDA kernels on CUDA tensors.
+reference leaves them to XLA, outside any Pallas kernel); attention and the
+two scans go through ``kernels.ops``, which launches the CUDA kernels on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -55,6 +57,17 @@ def norm_apply(p: dict, x, eps: float = 1e-5):
         ms = (xf * xf).mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
     return y.to(x.dtype)
+
+
+def group_norm_apply(scale, x, n_groups: int, eps: float = 1e-5):
+    """Per-head group norm over the last dim cut into groups (RWKV6's ln_x,
+    Mamba2's gated norm)."""
+    B, S, D = x.shape
+    xf = x.float().reshape(B, S, n_groups, D // n_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(B, S, D)
+    return (y * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +190,176 @@ def mlp_apply(p, x, ctx: ShardCtx = NO_SHARD):
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     return torch.einsum("bsf,fd->bsd", h, p["wd"])
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch)
+# ---------------------------------------------------------------------------
+
+def rwkv_heads(cfg: ArchConfig) -> int:
+    """RWKV time-mix heads are d_model / head_dim (projections are D->D)."""
+    return cfg.d_model // cfg.ssm.head_dim
+
+
+def rwkv6_defs(cfg: ArchConfig) -> dict:
+    D = cfg.d_model
+    s = cfg.ssm
+    n_mix = 5  # r, k, v, w, g
+    return {
+        "tm": {  # time mix
+            "mu": ParamDef((n_mix, D), (None, "embed"), init="zeros"),
+            "mix_w1": ParamDef((D, n_mix * s.lora_mix), ("embed", None),
+                               init="scaled"),
+            "mix_w2": ParamDef((n_mix, s.lora_mix, D), (None, None, "embed"),
+                               init="scaled", scale=0.1),
+            "decay0": ParamDef((D,), ("embed",), init="zeros"),
+            "decay_w1": ParamDef((D, s.lora_decay), ("embed", None),
+                                 init="scaled"),
+            "decay_w2": ParamDef((s.lora_decay, D), (None, "embed"),
+                                 init="scaled", scale=0.1),
+            "bonus": ParamDef((rwkv_heads(cfg), s.head_dim),
+                              ("heads", "head_dim"), init="zeros"),
+            "wr": ParamDef((D, D), ("embed", "heads_x_dim"), init="scaled"),
+            "wk": ParamDef((D, D), ("embed", "heads_x_dim"), init="scaled"),
+            "wv": ParamDef((D, D), ("embed", "heads_x_dim"), init="scaled"),
+            "wg": ParamDef((D, D), ("embed", "heads_x_dim"), init="scaled"),
+            "wo": ParamDef((D, D), ("heads_x_dim", "embed"), init="scaled"),
+            "ln_x": ParamDef((D,), ("embed",), init="ones"),
+        },
+        "cm": {  # channel mix
+            "mu_k": ParamDef((D,), ("embed",), init="zeros"),
+            "mu_r": ParamDef((D,), ("embed",), init="zeros"),
+            "wk": ParamDef((D, cfg.d_ff), ("embed", "ff"), init="scaled"),
+            "wv": ParamDef((cfg.d_ff, D), ("ff", "embed"), init="scaled"),
+            "wr": ParamDef((D, D), ("embed", "heads_x_dim"), init="scaled"),
+        },
+    }
+
+
+def _rwkv6_projections(p, x, x_prev, cfg: ArchConfig):
+    """Shared by the full-sequence time mix and the decode step.  x, x_prev:
+    (B, S, D).  Returns r, k, v (B, S, H, Dh) in x's dtype, the decay w
+    (B, S, H, Dh) in float32, in (0, 1), and the gate g (B, S, D)."""
+    s = cfg.ssm
+    H, Dh = rwkv_heads(cfg), s.head_dim
+    B, S, D = x.shape
+    tm = p["tm"]
+    delta = x_prev - x
+    # data-dependent token-shift amounts (5 lerp amounts via LoRA)
+    mix_in = torch.tanh(torch.einsum("bsd,dr->bsr", x + 0.5 * delta,
+                                     tm["mix_w1"]).float()).to(x.dtype)
+    mix_in = mix_in.reshape(B, S, 5, s.lora_mix)
+    dyn = torch.einsum("bsnr,nrd->nbsd", mix_in, tm["mix_w2"])
+    mu = tm["mu"][:, None, None, :].to(x.dtype)
+    xr, xk, xv, xw, xg = x[None] + delta[None] * (mu + dyn)     # (5, B, S, D)
+    r = torch.einsum("bsd,de->bse", xr, tm["wr"]).reshape(B, S, H, Dh)
+    k = torch.einsum("bsd,de->bse", xk, tm["wk"]).reshape(B, S, H, Dh)
+    v = torch.einsum("bsd,de->bse", xv, tm["wv"]).reshape(B, S, H, Dh)
+    g = F.silu(torch.einsum("bsd,de->bse", xg, tm["wg"]).float()).to(x.dtype)
+    dec = tm["decay0"].float() + torch.einsum(
+        "bsd,dr->bsr", torch.tanh(xw.float()),
+        tm["decay_w1"].float()) @ tm["decay_w2"].float()
+    w = torch.exp(-torch.exp(dec.clamp(-20.0, 10.0))).reshape(B, S, H, Dh)
+    return r, k, v, w, g
+
+
+def _shift(x, x_prev_row):
+    """(B, S, D) -> the previous token's row at every position, x_prev_row
+    (B, D) before the first."""
+    return torch.cat([x_prev_row[:, None], x[:, :-1]], dim=1)
+
+
+def rwkv6_time_mix(p, x, x_prev_row, state0, cfg: ArchConfig,
+                   ctx: ShardCtx = NO_SHARD):
+    """Full-sequence time mix.  x: (B, S, D); x_prev_row: (B, D) last token
+    of the previous segment (zeros at the start); state0: (B, H, Dh, Dh)
+    float32.  Returns y, (last x row, final state)."""
+    B, S, D = x.shape
+    r, k, v, w, g = _rwkv6_projections(p, x, _shift(x, x_prev_row), cfg)
+    y, state = ops.rwkv6_scan(r, k, v, w.to(r.dtype), p["tm"]["bonus"],
+                              state0, impl=ctx.impl)
+    y = group_norm_apply(p["tm"]["ln_x"], y.reshape(B, S, D), rwkv_heads(cfg))
+    y = torch.einsum("bse,ed->bsd", y * g, p["tm"]["wo"])
+    return y, (x[:, -1], state)
+
+
+def rwkv6_channel_mix(p, x, x_prev_row):
+    """x: (B, S, D); returns y, last x row."""
+    delta = _shift(x, x_prev_row) - x
+    cm = p["cm"]
+    xk = x + delta * cm["mu_k"].to(x.dtype)
+    xr = x + delta * cm["mu_r"].to(x.dtype)
+    k = torch.einsum("bsd,df->bsf", xk, cm["wk"])
+    k = torch.square(F.relu(k.float())).to(x.dtype)
+    v = torch.einsum("bsf,fd->bsd", k, cm["wv"])
+    r = torch.sigmoid(torch.einsum("bsd,de->bse", xr, cm["wr"]).float()
+                      ).to(x.dtype)
+    return r * v, x[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_defs(cfg: ArchConfig) -> dict:
+    s = cfg.ssm
+    D = cfg.d_model
+    d_inner = s.expand * D
+    H = d_inner // s.head_dim
+    conv_ch = d_inner + 2 * s.state_dim
+    return {
+        "in_proj": ParamDef((D, 2 * d_inner + 2 * s.state_dim + H),
+                            ("embed", "heads_x_dim"), init="scaled"),
+        "conv_w": ParamDef((s.conv_width, conv_ch), ("conv", "heads_x_dim"),
+                           init="scaled", scale=0.5),
+        "conv_b": ParamDef((conv_ch,), ("heads_x_dim",), init="zeros"),
+        "a_log": ParamDef((H,), ("heads",), init="zeros"),
+        "dt_bias": ParamDef((H,), ("heads",), init="zeros"),
+        "d_skip": ParamDef((H,), ("heads",), init="ones"),
+        "norm": ParamDef((d_inner,), ("heads_x_dim",), init="ones"),
+        "out_proj": ParamDef((d_inner, D), ("heads_x_dim", "embed"),
+                             init="scaled"),
+    }
+
+
+def _mamba2_split(p, x, cfg: ArchConfig):
+    """The input projection cut into z (gate), xbc (conv input) and dt."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.head_dim
+    N = s.state_dim
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, H], dim=-1)
+    return z, xbc, dt, d_inner, H, N
+
+
+def mamba2_apply(p, x, conv_state0, ssd_state0, cfg: ArchConfig,
+                 ctx: ShardCtx = NO_SHARD):
+    """Full-sequence Mamba2 block.  conv_state0: (B, conv_w - 1, conv_ch)
+    left context; ssd_state0: (B, H, P, N) float32.  Returns y,
+    (conv_state, ssd_state)."""
+    s = cfg.ssm
+    B, S, D = x.shape
+    z, xbc, dt, d_inner, H, N = _mamba2_split(p, x, cfg)
+    # causal conv over the sequence with the carried left context: the
+    # reference's sum of shifted products, in its order
+    seq = torch.cat([conv_state0.to(xbc.dtype), xbc], dim=1)
+    kernel = p["conv_w"]
+    conv = sum(seq[:, i:i + S] * kernel[i][None, None]
+               for i in range(s.conv_width))
+    conv = F.silu((conv + p["conv_b"][None, None]).float()).to(x.dtype)
+    x_ssm, Bmat, Cmat = torch.split(conv, [d_inner, N, N], dim=-1)
+    xh = x_ssm.reshape(B, S, H, s.head_dim)
+    dtf = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["a_log"].float())
+    y, ssd_state = ops.mamba2_ssd(xh.contiguous(), dtf.to(x.dtype), A,
+                                  Bmat.contiguous(), Cmat.contiguous(),
+                                  ssd_state0, impl=ctx.impl)
+    y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
+    y = group_norm_apply(p["norm"], y.reshape(B, S, d_inner), H)
+    y = y * F.silu(z.float()).to(x.dtype)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out, (seq[:, S:], ssd_state)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Decoder-only LM assembly, the dense family, in PyTorch.
+"""Decoder-only LM assembly in PyTorch: the dense, ssm (RWKV6) and hybrid
+(Mamba2 + shared attention, Zamba2-style) families.
 
-The port's copy of ``repro/models/lm.py`` for ``family == "dense"``.  The
+The port's copy of ``repro/models/lm.py`` for those families.  The
 parameter tree has the reference's paths and shapes (layer stacks carry a
 leading ``layers`` axis); a Python loop over the layers replaces
 ``lax.scan``.  Three entry points:
@@ -9,10 +10,10 @@ leading ``layers`` axis); a Python loop over the layers replaces
   prefill(params, cfg, tokens, ctx, max_len)   -> (logits_last, cache)
   decode(params, cfg, cache, tokens, pos, ctx) one-token step -> (logits, cache)
 
-``decode`` writes the new key/value rows into ``cache`` in place (see
-``layers.attn_decode``) and returns the same dict.  The other families (moe,
-ssm, hybrid, vlm, audio) are not ported yet and raise
-``NotImplementedError``.
+``decode`` updates ``cache`` in place (the new key/value rows, the
+recurrent states and token-shift rows) and returns the same dict; the
+reference returns a new one.  The other families (moe, vlm, audio) are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,13 +21,15 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.parallel.axes import ParamDef, tree_map
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ArchConfig):
@@ -61,14 +64,75 @@ def _dense_block_defs(cfg: ArchConfig) -> dict:
     }
 
 
+def _rwkv_block_defs(cfg: ArchConfig) -> dict:
+    d = L.rwkv6_defs(cfg)
+    d["ln1"] = L.norm_defs(cfg.d_model)
+    d["ln2"] = L.norm_defs(cfg.d_model)
+    return d
+
+
+def _mamba_block_defs(cfg: ArchConfig) -> dict:
+    return {"ln": L.norm_defs(cfg.d_model), "mamba": L.mamba2_defs(cfg)}
+
+
+def _shared_attn_defs(cfg: ArchConfig) -> dict:
+    h = cfg.hybrid
+    hd = cfg.d_model // h.shared_attn_heads
+    return {
+        "ln1": L.norm_defs(cfg.d_model),
+        "attn": L.attn_defs(cfg.d_model, h.shared_attn_heads,
+                            h.shared_attn_heads, hd),
+        "ln2": L.norm_defs(cfg.d_model),
+        "mlp": L.mlp_defs(cfg.d_model, h.shared_attn_ff),
+    }
+
+
 def param_defs(cfg: ArchConfig) -> dict:
     _require_ported(cfg)
-    return {"embed": L.embed_defs(cfg), "final_norm": L.norm_defs(cfg.d_model),
-            "blocks": stack_defs(_dense_block_defs(cfg), cfg.n_layers)}
+    p: dict = {"embed": L.embed_defs(cfg),
+               "final_norm": L.norm_defs(cfg.d_model)}
+    if cfg.family == "dense":
+        p["blocks"] = stack_defs(_dense_block_defs(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        p["ln0"] = L.norm_defs(cfg.d_model)
+        p["blocks"] = stack_defs(_rwkv_block_defs(cfg), cfg.n_layers)
+    else:  # hybrid
+        p["blocks"] = stack_defs(_mamba_block_defs(cfg), cfg.n_layers)
+        p["shared"] = _shared_attn_defs(cfg)
+    return p
 
 
 def n_layers(params) -> int:
-    return params["blocks"]["ln1"]["scale"].shape[0]
+    blk = params["blocks"]
+    return (blk["ln"] if "ln" in blk else blk["ln1"])["scale"].shape[0]
+
+
+def _hybrid_groups(cfg: ArchConfig) -> list[tuple[int, int]]:
+    """(lo, hi) Mamba-layer slices; the shared block runs before each."""
+    period = cfg.hybrid.period
+    return [(lo, min(lo + period, cfg.n_layers))
+            for lo in range(0, cfg.n_layers, period)]
+
+
+def n_shared_invocations(cfg: ArchConfig) -> int:
+    return len(_hybrid_groups(cfg))
+
+
+def _rwkv_zeros(cfg, B, x):
+    """The zero token-shift row and WKV state a sequence starts from."""
+    H, Dh = L.rwkv_heads(cfg), cfg.ssm.head_dim
+    return (x.new_zeros(B, cfg.d_model),
+            torch.zeros(B, H, Dh, Dh, dtype=torch.float32, device=x.device))
+
+
+def _mamba_zeros(cfg, B, x):
+    """The zero conv context and SSD state a sequence starts from."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    conv_ch = d_inner + 2 * s.state_dim
+    return (x.new_zeros(B, s.conv_width - 1, conv_ch),
+            torch.zeros(B, d_inner // s.head_dim, s.head_dim, s.state_dim,
+                        dtype=torch.float32, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +147,31 @@ def _dense_block_apply(cfg, blk, x, positions, ctx):
     return x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
 
 
+def _rwkv_block_apply(cfg, blk, x, tm_prev, cm_prev, state0, ctx):
+    h, (tm_last, state) = L.rwkv6_time_mix(
+        blk, L.norm_apply(blk["ln1"], x), tm_prev, state0, cfg, ctx)
+    x = x + h
+    h, cm_last = L.rwkv6_channel_mix(blk, L.norm_apply(blk["ln2"], x),
+                                     cm_prev)
+    return x + h, tm_last, cm_last, state
+
+
+def _mamba_block_apply(cfg, blk, x, conv0, ssd0, ctx):
+    h, (conv_s, ssd_s) = L.mamba2_apply(blk["mamba"],
+                                        L.norm_apply(blk["ln"], x), conv0,
+                                        ssd0, cfg, ctx)
+    return x + h, conv_s, ssd_s
+
+
+def _shared_block_apply(cfg, p, x, positions, ctx):
+    blk = p["shared"]
+    y = L.attn_apply(blk["attn"], L.norm_apply(blk["ln1"], x),
+                     positions=positions, theta=cfg.rope_theta, causal=True,
+                     window=cfg.sliding_window, ctx=ctx)
+    x = x + y
+    return x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
+
+
 def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD):
     """Full-sequence forward.  tokens (B, S) int.  Returns (logits (B, S, V)
     float32, aux_loss 0-dim float32)."""
@@ -90,9 +179,24 @@ def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD):
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = L.embed_apply(params["embed"], tokens, ctx)
-    for i in range(n_layers(params)):
-        x = _dense_block_apply(cfg, layer(params["blocks"], i), x, positions,
-                               ctx)
+    if cfg.family == "dense":
+        for i in range(n_layers(params)):
+            x = _dense_block_apply(cfg, layer(params["blocks"], i), x,
+                                   positions, ctx)
+    elif cfg.family == "ssm":
+        x = L.norm_apply(params["ln0"], x)
+        zeros_prev, state0 = _rwkv_zeros(cfg, B, x)
+        for i in range(n_layers(params)):
+            x, _, _, _ = _rwkv_block_apply(cfg, layer(params["blocks"], i), x,
+                                           zeros_prev, zeros_prev, state0,
+                                           ctx)
+    else:  # hybrid
+        conv0, ssd0 = _mamba_zeros(cfg, B, x)
+        for lo, hi in _hybrid_groups(cfg):
+            x = _shared_block_apply(cfg, params, x, positions, ctx)
+            for i in range(lo, hi):
+                x, _, _ = _mamba_block_apply(cfg, layer(params["blocks"], i),
+                                             x, conv0, ssd0, ctx)
     x = L.norm_apply(params["final_norm"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.lm_head_apply(params["embed"], x, ctx), aux
@@ -103,12 +207,37 @@ def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD):
 # ---------------------------------------------------------------------------
 
 def cache_struct(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    """The decode cache as ``meta`` tensors: k and v, each (n_layers, batch,
-    max_len, n_kv_heads, head_dim) in the model's dtype."""
+    """The decode cache as ``meta`` tensors, the reference's layout:
+    dense: k and v (n_layers, batch, max_len, n_kv_heads, head_dim);
+    ssm: wkv (n_layers, batch, H, Dh, Dh) float32 and the token-shift rows
+    tm_prev, cm_prev (n_layers, batch, d_model); hybrid: conv (n_layers,
+    batch, conv_width - 1, conv_ch), ssd (n_layers, batch, H, P, N) float32
+    and the shared block's window cache shared_k, shared_v (invocations,
+    batch, W, heads, head_dim), W = min(max_len, sliding_window)."""
     _require_ported(cfg)
-    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {name: torch.empty(kv, dtype=cfg.dtype, device="meta")
-            for name in ("k", "v")}
+    dt, f32 = cfg.dtype, torch.float32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    nl = cfg.n_layers
+    if cfg.family == "dense":
+        kv = (nl, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": meta(kv, dt), "v": meta(kv, dt)}
+    s = cfg.ssm
+    if cfg.family == "ssm":
+        H = cfg.d_model // s.head_dim
+        return {"wkv": meta((nl, batch, H, s.head_dim, s.head_dim), f32),
+                "tm_prev": meta((nl, batch, cfg.d_model), dt),
+                "cm_prev": meta((nl, batch, cfg.d_model), dt)}
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.head_dim
+    conv_ch = d_inner + 2 * s.state_dim
+    W = min(max_len, cfg.sliding_window or max_len)
+    hh = cfg.hybrid.shared_attn_heads
+    kv = (n_shared_invocations(cfg), batch, W, hh, cfg.d_model // hh)
+    return {"conv": meta((nl, batch, s.conv_width - 1, conv_ch), dt),
+            "ssd": meta((nl, batch, H, s.head_dim, s.state_dim), f32),
+            "shared_k": meta(kv, dt), "shared_v": meta(kv, dt)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -119,42 +248,161 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def prefill(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
             max_len: int | None = None):
-    """Process a prompt; return (logits_last (B, V) float32, cache filled to
-    S and zero beyond, of length max_len)."""
+    """Process a prompt; return (logits_last (B, V) float32, cache): the KV
+    cache filled to S and zero beyond, of length max_len (dense); the
+    states after the prompt (ssm, hybrid)."""
     _require_ported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     positions = _positions(B, S, tokens.device)
     x = L.embed_apply(params["embed"], tokens, ctx)
     cache = init_cache(cfg, B, max_len, x.device)
-    for i in range(n_layers(params)):
-        blk = layer(params["blocks"], i)
-        h, (k, v) = L.attn_prefill(blk["attn"], L.norm_apply(blk["ln1"], x),
-                                   positions=positions, theta=cfg.rope_theta,
-                                   window=cfg.sliding_window, ctx=ctx,
-                                   cache_len=max_len)
-        cache["k"][i] = k
-        cache["v"][i] = v
-        x = x + h
-        x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
+    if cfg.family == "dense":
+        for i in range(n_layers(params)):
+            blk = layer(params["blocks"], i)
+            h, (k, v) = L.attn_prefill(blk["attn"],
+                                       L.norm_apply(blk["ln1"], x),
+                                       positions=positions,
+                                       theta=cfg.rope_theta,
+                                       window=cfg.sliding_window, ctx=ctx,
+                                       cache_len=max_len)
+            cache["k"][i] = k
+            cache["v"][i] = v
+            x = x + h
+            x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
+    elif cfg.family == "ssm":
+        x = L.norm_apply(params["ln0"], x)
+        zeros_prev, state0 = _rwkv_zeros(cfg, B, x)
+        for i in range(n_layers(params)):
+            x, tm_last, cm_last, state = _rwkv_block_apply(
+                cfg, layer(params["blocks"], i), x, zeros_prev, zeros_prev,
+                state0, ctx)
+            cache["wkv"][i] = state
+            cache["tm_prev"][i] = tm_last
+            cache["cm_prev"][i] = cm_last
+    else:  # hybrid
+        conv0, ssd0 = _mamba_zeros(cfg, B, x)
+        W = cache["shared_k"].shape[2]
+        sh = params["shared"]
+        for g, (lo, hi) in enumerate(_hybrid_groups(cfg)):
+            h, (k, v) = L.attn_prefill(sh["attn"], L.norm_apply(sh["ln1"], x),
+                                       positions=positions,
+                                       theta=cfg.rope_theta,
+                                       window=cfg.sliding_window, ctx=ctx,
+                                       cache_len=max_len)
+            x = x + h
+            x = x + L.mlp_apply(sh["mlp"], L.norm_apply(sh["ln2"], x), ctx)
+            # the trailing window of the cache (wrap-indexed at decode).  As
+            # in the reference, it is cut from the cache padded to max_len,
+            # not from the S prompt rows (ROADMAP's watch list)
+            for name, t in (("shared_k", k), ("shared_v", v)):
+                if S >= W:
+                    cache[name][g] = t[:, -W:]
+                else:
+                    cache[name][g, :, :S] = t[:, :S]
+            for i in range(lo, hi):
+                x, conv_s, ssd_s = _mamba_block_apply(
+                    cfg, layer(params["blocks"], i), x, conv0, ssd0, ctx)
+                cache["conv"][i] = conv_s
+                cache["ssd"][i] = ssd_s
     x = L.norm_apply(params["final_norm"], x[:, -1:])
     return L.lm_head_apply(params["embed"], x, ctx)[:, 0], cache
 
 
+def _rwkv_step(cfg, blk, x, cache, i):
+    """One RWKV6 layer for one token; updates layer i of ``cache`` in
+    place."""
+    B = x.shape[0]
+    xin = L.norm_apply(blk["ln1"], x)
+    r, k, v, w, g = L._rwkv6_projections(blk, xin, cache["tm_prev"][i][:, None],
+                                         cfg)
+    # the reference's decode step (repro/models/lm.py:545) calls this plain
+    # function on every impl, outside any Pallas kernel, as it computes the
+    # projections: it is the decode path, not a stand-in for the scan kernel
+    y, wkv = ref.rwkv6_step_ref(r[:, 0], k[:, 0], v[:, 0],
+                                w[:, 0].to(r.dtype), blk["tm"]["bonus"],
+                                cache["wkv"][i])
+    y = L.group_norm_apply(blk["tm"]["ln_x"], y.reshape(B, 1, cfg.d_model),
+                           L.rwkv_heads(cfg))
+    x = x + torch.einsum("bse,ed->bsd", y * g, blk["tm"]["wo"])
+    h, cm_last = L.rwkv6_channel_mix(blk, L.norm_apply(blk["ln2"], x),
+                                     cache["cm_prev"][i])
+    cache["wkv"][i] = wkv
+    cache["tm_prev"][i] = xin[:, -1]
+    cache["cm_prev"][i] = cm_last
+    return x + h
+
+
+def _mamba_step(cfg, blk, x, cache, i):
+    """One Mamba2 layer for one token; updates layer i of ``cache`` in
+    place."""
+    s = cfg.ssm
+    p = blk["mamba"]
+    B = x.shape[0]
+    z, xbc, dt, d_inner, H, N = L._mamba2_split(
+        p, L.norm_apply(blk["ln"], x), cfg)
+    seq = torch.cat([cache["conv"][i].to(xbc.dtype), xbc], dim=1)
+    conv = sum(seq[:, j] * p["conv_w"][j][None] for j in range(s.conv_width))
+    conv = F.silu((conv + p["conv_b"][None]).float()).to(x.dtype)
+    x_ssm, Bv, Cv = torch.split(conv, [d_inner, N, N], dim=-1)
+    xh = x_ssm.reshape(B, H, s.head_dim)
+    dtf = F.softplus(dt[:, 0].float() + p["dt_bias"].float())
+    A = -torch.exp(p["a_log"].float())
+    # the reference's decode path (repro/models/lm.py:583) on every impl,
+    # outside any Pallas kernel: not a stand-in for the SSD kernel
+    y, ssd = ref.mamba2_step_ref(xh, dtf, A, Bv, Cv, cache["ssd"][i])
+    y = y + xh * p["d_skip"].to(x.dtype)[None, :, None]
+    y = L.group_norm_apply(p["norm"], y.reshape(B, 1, d_inner), H)
+    y = y * F.silu(z.float()).to(x.dtype)
+    cache["conv"][i] = seq[:, 1:]
+    cache["ssd"][i] = ssd
+    return x + torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
+def _shared_step(cfg, sh, x, cache, g, pos, ctx):
+    """The shared attention block for one token against its wrap-indexed
+    window cache: the new key/value row goes IN PLACE into slot pos % W of
+    invocation g's cache, and the live length is min(pos + 1, W)."""
+    xin = L.norm_apply(sh["ln1"], x)
+    q, k, v = L._qkv(sh["attn"], xin)
+    q = L.rope_apply(q, pos[:, None], cfg.rope_theta)
+    k = L.rope_apply(k, pos[:, None], cfg.rope_theta)
+    ck, cv = cache["shared_k"][g], cache["shared_v"][g]
+    W = ck.shape[1]
+    pos = pos.to(device=x.device, dtype=torch.long)
+    bidx = torch.arange(x.shape[0], device=x.device)
+    ck[bidx, pos % W] = k[:, 0].to(ck.dtype)
+    cv[bidx, pos % W] = v[:, 0].to(cv.dtype)
+    kv_len = torch.clamp(pos + 1, max=W).to(torch.int32)
+    out = ops.decode_attention(q.contiguous(), ck, cv, kv_len, impl=ctx.impl)
+    x = x + L._out(sh["attn"], out)
+    return x + L.mlp_apply(sh["mlp"], L.norm_apply(sh["ln2"], x), ctx)
+
+
 def decode(params, cfg: ArchConfig, cache: dict, tokens, pos, *,
            ctx: ShardCtx = NO_SHARD):
-    """One decode step.  tokens (B, 1) int; pos (B,) int32 tokens already in
-    the cache.  Writes the step's keys and values into ``cache`` in place;
-    returns (logits (B, V) float32, cache)."""
+    """One decode step.  tokens (B, 1) int; pos (B,) int32 tokens already
+    seen.  Updates ``cache`` in place; returns (logits (B, V) float32,
+    cache)."""
     _require_ported(cfg)
     x = L.embed_apply(params["embed"], tokens, ctx)
-    for i in range(n_layers(params)):
-        blk = layer(params["blocks"], i)
-        h, _ = L.attn_decode(blk["attn"], L.norm_apply(blk["ln1"], x),
-                             cache["k"][i], cache["v"][i], pos,
-                             theta=cfg.rope_theta, window=cfg.sliding_window,
-                             ctx=ctx)
-        x = x + h
-        x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
+    if cfg.family == "dense":
+        for i in range(n_layers(params)):
+            blk = layer(params["blocks"], i)
+            h, _ = L.attn_decode(blk["attn"], L.norm_apply(blk["ln1"], x),
+                                 cache["k"][i], cache["v"][i], pos,
+                                 theta=cfg.rope_theta,
+                                 window=cfg.sliding_window, ctx=ctx)
+            x = x + h
+            x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
+    elif cfg.family == "ssm":
+        x = L.norm_apply(params["ln0"], x)
+        for i in range(n_layers(params)):
+            x = _rwkv_step(cfg, layer(params["blocks"], i), x, cache, i)
+    else:  # hybrid
+        for g, (lo, hi) in enumerate(_hybrid_groups(cfg)):
+            x = _shared_step(cfg, params["shared"], x, cache, g, pos, ctx)
+            for i in range(lo, hi):
+                x = _mamba_step(cfg, layer(params["blocks"], i), x, cache, i)
     x = L.norm_apply(params["final_norm"], x)
     return L.lm_head_apply(params["embed"], x, ctx)[:, 0], cache

@@ -1,9 +1,9 @@
 """Model registry: the ``Model`` facade over a family implementation, and
 analytic parameter counts.
 
-The port's copy of ``repro/models/registry.py``.  Only the dense family is
-ported (``models/lm.py``); ``get_model`` raises ``NotImplementedError`` for
-the others.  Every method that makes or takes tensors has a ``device``
+The port's copy of ``repro/models/registry.py``.  The dense, ssm and hybrid
+families are ported (``models/lm.py``); ``get_model`` raises
+``NotImplementedError`` for the others.  Every method that makes or takes tensors has a ``device``
 argument under the port's device rule: ``None`` means CUDA and raises
 without a GPU (``kernels.ops.resolve_device``)."""
 

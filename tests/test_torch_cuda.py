@@ -1,7 +1,11 @@
 """The CUDA kernels on the card, against their plain torch versions: the
 forest kernels bitwise (and against the numpy mirror), the attention
 kernels within tests/test_kernels.py's tolerances (2e-3 in float32, 2e-2
-in bf16).  Marked ``cuda``; without a GPU they skip.
+in bf16), the recurrence kernels within the scan tests' tolerances there
+(y 5e-3 in float32 and 5e-2 in bf16, the float32 state 1e-3: both sides
+compute in float32 from the same inputs, so the gap is summation order and
+at most one rounding of y to bf16).  Marked ``cuda``; without a GPU they
+skip.
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py"""
 
@@ -158,3 +162,117 @@ def test_attention_kernels_reject_bad_input(dev):
     with pytest.raises(TypeError):
         ops.decode_attention(q[:, :1], q[:, :, :2].contiguous(),
                              q[:, :, :2].contiguous(), kv_len)
+
+
+# the serving prefill shapes, tests/test_kernels.py's scan cases and a
+# ragged S; (B, S, H, Dh) and (B, S, H, P, N)
+RWKV_CASES = {"serve": (4, 1024, 32, 64), "k16": (1, 64, 2, 16),
+              "k64": (2, 128, 4, 64), "k32": (1, 256, 8, 32),
+              "ragged": (4, 1000, 32, 64)}
+SSD_CASES = {"serve": (4, 1024, 64, 64, 64), "k16": (1, 64, 2, 16, 16),
+             "k64": (2, 128, 4, 64, 64), "k32": (1, 256, 8, 32, 16),
+             "ragged": (4, 1000, 64, 64, 64)}
+
+
+def _scan_tol(dtype):
+    return dict(rtol=5e-2, atol=5e-2) if dtype == "bf16" \
+        else dict(rtol=5e-3, atol=5e-3)
+
+
+def _rwkv_inputs(gen, B, S, H, Dh, dtype, dev):
+    """tests/test_kernels.py's distributions: w = sigmoid(2 z), u = 0.3 z."""
+    r, k, v = (_randn(gen, (B, S, H, Dh), dtype, dev) for _ in range(3))
+    w = torch.sigmoid(2 * torch.randn((B, S, H, Dh), generator=gen,
+                                      device=dev)).to(DTYPES[dtype])
+    u = (0.3 * torch.randn((H, Dh), generator=gen, device=dev)).to(
+        DTYPES[dtype])
+    s0 = torch.randn((B, H, Dh, Dh), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+def _ssd_inputs(gen, B, S, H, P, N, dtype, dev):
+    """dt = softplus(z), A = -exp(0.5 z), as tests/test_kernels.py."""
+    x = _randn(gen, (B, S, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (B, S, H), generator=gen, device=dev)).to(DTYPES[dtype])
+    A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device=dev))
+    Bm, Cm = (_randn(gen, (B, S, N), dtype, dev) for _ in range(2))
+    s0 = torch.randn((B, H, P, N), generator=gen, device=dev)
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", RWKV_CASES)
+def test_rwkv6_scan_kernel(dev, case, dtype):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    args = _rwkv_inputs(gen, *RWKV_CASES[case], dtype, dev)
+    before = ops.launch_counts()["rwkv6_scan"]
+    y, st = ops.rwkv6_scan(*args)
+    assert ops.launch_counts()["rwkv6_scan"] == before + 1
+    want_y, want_st = ops.rwkv6_scan(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert y.dtype == args[0].dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), **_scan_tol(dtype))
+    torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_mamba2_ssd_kernel(dev, case, dtype):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    args = _ssd_inputs(gen, *SSD_CASES[case], dtype, dev)
+    before = ops.launch_counts()["mamba2_ssd"]
+    y, st = ops.mamba2_ssd(*args)
+    assert ops.launch_counts()["mamba2_ssd"] == before + 1
+    want_y, want_st = ops.mamba2_ssd(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert y.dtype == args[0].dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), **_scan_tol(dtype))
+    torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+def test_scan_kernels_carry_state(dev):
+    """The sequence in two calls, the state carried between them, equals one
+    call: the per-step arithmetic does not depend on where a call starts."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    r, k, v, w, u, s0 = _rwkv_inputs(gen, 2, 301, 4, 64, "f32", dev)
+    y, st = ops.rwkv6_scan(r, k, v, w, u, s0)
+    cut = 77
+    y1, s1 = ops.rwkv6_scan(*(t[:, :cut].contiguous() for t in (r, k, v, w)),
+                            u, s0)
+    y2, s2 = ops.rwkv6_scan(*(t[:, cut:].contiguous() for t in (r, k, v, w)),
+                            u, s1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st)
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, 2, 301, 4, 32, 64, "f32", dev)
+    y, st = ops.mamba2_ssd(x, dt, A, Bm, Cm, s0)
+    first = (t[:, :cut].contiguous() for t in (x, dt))
+    y1, s1 = ops.mamba2_ssd(*first, A, Bm[:, :cut].contiguous(),
+                            Cm[:, :cut].contiguous(), s0)
+    rest = (t[:, cut:].contiguous() for t in (x, dt))
+    y2, s2 = ops.mamba2_ssd(*rest, A, Bm[:, cut:].contiguous(),
+                            Cm[:, cut:].contiguous(), s1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st)
+
+
+def test_scan_kernels_reject_bad_input(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r, k, v, w, u, s0 = _rwkv_inputs(gen, 1, 8, 2, 16, "f32", dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros((1, 8, 2, 48), device=dev)
+        ops.rwkv6_scan(z, z, z, z, torch.zeros((2, 48), device=dev),
+                       torch.zeros((1, 2, 48, 48), device=dev))
+    with pytest.raises(TypeError):
+        ops.rwkv6_scan(r.half(), k.half(), v.half(), w.half(), u.half(), s0)
+    with pytest.raises(TypeError):
+        ops.rwkv6_scan(r, k, v, w, u, s0.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rwkv6_scan(r, k, v, w.transpose(1, 2).contiguous().transpose(1, 2),
+                       u, s0)
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, 1, 8, 2, 16, 16, "f32", dev)
+    with pytest.raises(TypeError):
+        ops.mamba2_ssd(x, dt, A.bfloat16(), Bm, Cm, s0)
+    with pytest.raises(ValueError, match="state_dim"):
+        z = torch.zeros((1, 8, 24), device=dev)
+        ops.mamba2_ssd(x, dt, A, z, z, torch.zeros((1, 2, 16, 24), device=dev))
+    with pytest.raises(ValueError):
+        ops.mamba2_ssd(x, dt, A, Bm, Cm[:, :4].contiguous(), s0)

@@ -60,24 +60,28 @@ import sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 from repro_torch.launch import serve
-res = serve.main(["--arch", "mistral-nemo-12b", "--batch", "2",
-                  "--prompt-len", "8", "--tokens", "4", "--device", "cpu"])
-assert res["tokens"].shape == (2, 4)
+for arch in sys.argv[1:]:
+    res = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "8",
+                      "--tokens", "4", "--device", "cpu"])
+    assert res["tokens"].shape == (2, 4)
 leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 """
+SERVED = ("mistral-nemo-12b", "rwkv6-1.6b", "zamba2-1.2b")
 
 
 def test_serves_with_jax_unimportable():
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_SERVE], capture_output=True, text=True,
-        timeout=300, cwd=ROOT,
+        [sys.executable, "-c", _NO_JAX_SERVE, *SERVED], capture_output=True,
+        text=True, timeout=300, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert lines[0].startswith("[serve] mistral-nemo-12b-smoke: prefill 2x8")
-    assert lines[1].startswith("[serve] sample:")
+    assert len(lines) == 2 * len(SERVED)
+    for arch, first, second in zip(SERVED, lines[::2], lines[1::2]):
+        assert first.startswith(f"[serve] {arch}-smoke: prefill 2x8")
+        assert second.startswith("[serve] sample:")
 
 
 def _imports(path: pathlib.Path):
@@ -117,17 +121,17 @@ def test_defaults_raise_without_gpu(no_cuda, entry):
         entry()
 
 
-@pytest.fixture(scope="module")
-def smoke_lm():
-    model = get_model(smoke_reduce(get_arch("mistral-nemo-12b")))
+@pytest.fixture(scope="module", params=SERVED)
+def smoke_lm(request):
+    model = get_model(smoke_reduce(get_arch(request.param)))
     params = model.init(0, device="cpu")
     _, cache = model.prefill(params, torch.zeros((1, 4), dtype=torch.long),
                              max_len=6, device="cpu")
-    return model, params, cache
+    return request.param, model, params, cache
 
 
 def test_serving_defaults_raise_without_gpu(no_cuda, smoke_lm):
-    model, params, cache = smoke_lm
+    arch, model, params, cache = smoke_lm
     tokens = torch.zeros((1, 4), dtype=torch.long)
     for entry in (lambda: model.init(0),
                   lambda: model.init_cache(1, 6),
@@ -135,7 +139,7 @@ def test_serving_defaults_raise_without_gpu(no_cuda, smoke_lm):
                   lambda: model.prefill(params, tokens, max_len=6),
                   lambda: model.decode(params, cache, tokens[:, :1],
                                        torch.tensor([4])),
-                  lambda: serve.main(["--arch", "mistral-nemo-12b"]),
+                  lambda: serve.main(["--arch", arch]),
                   lambda: lm_params_from_jax({"w": np.zeros(2, np.float32)})):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
@@ -150,6 +154,20 @@ def test_attention_cuda_impl_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.decode_attention(q[:, :1], k, k, torch.tensor([4], dtype=torch.int32),
                              impl="cuda")
+    assert ops.launch_counts() == before
+
+
+def test_recurrence_cuda_impl_on_cpu_tensor_raises():
+    r = torch.zeros((1, 4, 2, 16))
+    u, s0 = torch.zeros((2, 16)), torch.zeros((1, 2, 16, 16))
+    x, dt, A = torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 2)), \
+        torch.zeros(2)
+    bc = torch.zeros((1, 4, 16))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.rwkv6_scan(r, r, r, r, u, s0, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.mamba2_ssd(x, dt, A, bc, bc, s0, impl="cuda")
     assert ops.launch_counts() == before
 
 

@@ -1,16 +1,17 @@
-"""Parity of the port's dense LM (repro_torch.configs, .parallel.axes,
-.models, .launch.serve) with the JAX package on the CPU.
+"""Parity of the port's LMs (repro_torch.configs, .parallel.axes, .models,
+.launch.serve) with the JAX package on the CPU: the dense family and the
+recurrent ones, ssm (RWKV6) and hybrid (Mamba2 + shared attention).
 
 Configs and parameter trees are compared field for field and path for
-path.  For the smoke-reduced mistral-nemo-12b and stablelm-1.6b (float32),
-the weights are the JAX package's own init from ``jax.random.PRNGKey(0)``,
-carried across by ``convert.lm_params_from_jax``.  Each dense layer is held
-to 1e-5 of its output's scale: the largest difference is at most 1e-5 times
-the largest reference value (the two packages sum the float32 projections
-in different orders, so entries near zero differ by more than 1e-5 of
-themselves).  The whole model (forward, prefill, 8 greedy decode steps) is
-held to rtol 2e-4 / atol 2e-3, the tolerance of
-tests/test_smoke_archs.py."""
+path.  For the smoke-reduced mistral-nemo-12b, stablelm-1.6b, rwkv6-1.6b and
+zamba2-1.2b (float32), the weights are the JAX package's own init from
+``jax.random.PRNGKey(0)``, carried across by ``convert.lm_params_from_jax``.
+Each layer is held to 1e-5 of its output's scale: the largest difference is
+at most 1e-5 times the largest reference value (the two packages sum the
+float32 projections in different orders, so entries near zero differ by
+more than 1e-5 of themselves).  The whole model (forward, prefill and its
+cache, 8 greedy decode steps) is held to rtol 2e-4 / atol 2e-3, the
+tolerance of tests/test_smoke_archs.py."""
 
 import dataclasses
 
@@ -28,12 +29,23 @@ from repro_torch import configs as tconfigs
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.launch import serve
 from repro_torch.models import get_model, layers as TL, param_count
+from repro_torch.models.lm import PORTED_FAMILIES
 from repro_torch.parallel.axes import init_params, tree_leaves_with_path
 
 CPU = "cpu"
 DENSE = [a for a in tconfigs.ARCH_IDS
          if tconfigs.get_arch(a).family == "dense"]
+PORTED = [a for a in tconfigs.ARCH_IDS
+          if tconfigs.get_arch(a).family in PORTED_FAMILIES]
 PARITY_ARCHS = ["mistral-nemo-12b", "stablelm-1.6b"]
+RECURRENT = ["rwkv6-1.6b", "zamba2-1.2b"]
+# the leaf whose logical axes each family's test checks
+AXES_LEAF = {"dense": (("blocks", "attn", "wq"),
+                       ("layers", "embed", "heads", "head_dim")),
+             "ssm": (("blocks", "tm", "bonus"),
+                     ("layers", "heads", "head_dim")),
+             "hybrid": (("shared", "attn", "wq"),
+                        ("embed", "heads", "head_dim"))}
 MODEL_TOL = dict(rtol=2e-4, atol=2e-3)
 LAYER_TOL = 1e-5
 
@@ -71,8 +83,15 @@ def test_param_count_mistral_nemo():
     assert cfg.param_count() == jparam_count(jconfigs.get_arch(cfg.name))
 
 
+@pytest.mark.parametrize("arch_id,count", [("rwkv6-1.6b", 1_599_672_320),
+                                           ("zamba2-1.2b", 1_170_473_856)])
+def test_param_count_recurrent(arch_id, count):
+    cfg = tconfigs.get_arch(arch_id)
+    assert param_count(cfg) == count == jparam_count(jconfigs.get_arch(arch_id))
+
+
 @pytest.mark.parametrize("reduce", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", PORTED)
 def test_param_tree_paths_and_shapes(arch_id, reduce):
     j, t = jconfigs.get_arch(arch_id), tconfigs.get_arch(arch_id)
     if reduce:
@@ -88,13 +107,14 @@ def test_param_tree_paths_and_shapes(arch_id, reduce):
                tree_leaves_with_path(get_model(t).abstract_params()))
     # the logical axes stay on the definitions, as the reference's
     jdefs, tdefs = jget_model(j).param_defs(), get_model(t).param_defs()
-    assert tdefs["blocks"]["attn"]["wq"].axes \
-        == jdefs["blocks"]["attn"]["wq"].axes \
-        == ("layers", "embed", "heads", "head_dim")
+    path, axes = AXES_LEAF[t.family]
+    for key in path:
+        jdefs, tdefs = jdefs[key], tdefs[key]
+    assert tdefs.axes == jdefs.axes == axes
 
 
 @pytest.mark.parametrize("arch_id", [a for a in tconfigs.ARCH_IDS
-                                     if a not in DENSE])
+                                     if a not in PORTED])
 def test_unported_families_raise(arch_id):
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(tconfigs.smoke_reduce(tconfigs.get_arch(arch_id)))
@@ -237,7 +257,7 @@ def test_model_matches_reference(pair):
                                **MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", PORTED)
 def test_decode_matches_prefill_tail(arch_id):
     """The port's own KV-cache path (its own seeded init): prefill S tokens,
     decode token S; the logits match a full forward's last position (as
@@ -280,3 +300,140 @@ def test_generate_is_greedy_decode():
     assert np.array_equal(res["tokens"], res["logits"].argmax(-1).T.numpy())
     logits, cache = model.prefill(params, prompt, max_len=10, device=CPU)
     assert torch.equal(logits, res["logits"][0])
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families against the JAX model, weights carried across
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=RECURRENT)
+def rpair(request):
+    jcfg = jconfigs.smoke_reduce(jconfigs.get_arch(request.param))
+    jparams = jget_model(jcfg).init(jax.random.PRNGKey(0))
+    tparams = lm_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                 device=CPU)
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch(request.param))
+    return jcfg, jparams, cfg, tparams
+
+
+def _perturbed(blk, rs):
+    """Layer 1's parameters with every zero- or one-initialised leaf moved
+    off its constant (bonus, mu, decay0, a_log, dt_bias, conv_b, d_skip,
+    norms), so each term of the layer is exercised: numpy leaves for JAX,
+    tensors for the port."""
+    def move(a):
+        a = np.asarray(a, np.float32)
+        if np.all(a == a.flat[0]):
+            a = a + (0.3 * rs.randn(*a.shape)).astype(np.float32)
+        return a
+    jblk = jax.tree.map(lambda a: move(np.asarray(a)[1]), blk)
+    return jblk, lm_params_from_jax(jblk, device=CPU)
+
+
+def test_recurrent_layers_match_reference(rpair):
+    """group_norm_apply and the family's layer functions, from random inputs
+    and states, each within 1e-5 of its output's scale."""
+    jcfg, jp, cfg, _ = rpair
+    rs = np.random.RandomState(3)
+    jblk, tblk = _perturbed(jp["blocks"], rs)
+    B, S, D = 2, 12, cfg.d_model
+    jx, tx = _x(rs, B, S, D)
+    jrow, trow = _x(rs, B, D)
+    if cfg.family == "ssm":
+        H, Dh = TL.rwkv_heads(cfg), cfg.ssm.head_dim
+        _layer_close(TL.group_norm_apply(tblk["tm"]["ln_x"], tx, H),
+                     JL.group_norm_apply(jblk["tm"]["ln_x"], jx, H))
+        jprev, tprev = _x(rs, B, S, D)
+        for got, want in zip(TL._rwkv6_projections(tblk, tx, tprev, cfg),
+                             JL._rwkv6_projections(jblk, jx, jprev, jcfg)):
+            _layer_close(got, want)
+        js0, ts0 = _x(rs, B, H, Dh, Dh)
+        ty, (tlast, tst) = TL.rwkv6_time_mix(tblk, tx, trow, ts0, cfg)
+        jy, (jlast, jst) = JL.rwkv6_time_mix(jblk, jx, jrow, js0, jcfg)
+        for got, want in ((ty, jy), (tlast, jlast), (tst, jst)):
+            _layer_close(got, want)
+        ty, tlast = TL.rwkv6_channel_mix(tblk, tx, trow)
+        jy, jlast = JL.rwkv6_channel_mix(jblk, jx, jrow)
+        _layer_close(ty, jy)
+        _layer_close(tlast, jlast)
+    else:
+        s = cfg.ssm
+        d_inner = s.expand * D
+        H = d_inner // s.head_dim
+        jg, tg = _x(rs, B, S, d_inner)
+        _layer_close(TL.group_norm_apply(tblk["mamba"]["norm"], tg, H),
+                     JL.group_norm_apply(jblk["mamba"]["norm"], jg, H))
+        jc, tc = _x(rs, B, s.conv_width - 1, d_inner + 2 * s.state_dim)
+        js0, ts0 = _x(rs, B, H, s.head_dim, s.state_dim)
+        ty, (tconv, tssd) = TL.mamba2_apply(tblk["mamba"], tx, tc, ts0, cfg)
+        jy, (jconv, jssd) = JL.mamba2_apply(jblk["mamba"], jx, jc, js0, jcfg)
+        for got, want in ((ty, jy), (tconv, jconv), (tssd, jssd)):
+            _layer_close(got, want)
+
+
+def test_recurrent_model_matches_reference(rpair):
+    """apply, prefill with its whole cache and 8 greedy decode steps (the
+    cache after them too): within the smoke tolerance, greedy tokens
+    equal."""
+    jcfg, jp, cfg, tp = rpair
+    jmodel, model = jget_model(jcfg), get_model(cfg)
+    B, S, steps = 2, 16, 8
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S + 1))
+    jl, _ = jax.jit(jmodel.apply)(jp, jnp.asarray(toks, jnp.int32))
+    tl, _ = model.apply(tp, torch.from_numpy(toks), device=CPU)
+    np.testing.assert_allclose(_np(tl), _np(jl), **MODEL_TOL)
+    _greedy_parity(jmodel, jp, model, tp, toks[:, :S], S + steps, steps)
+
+
+def _greedy_parity(jmodel, jp, model, tp, prompt, max_len, steps):
+    B, S = prompt.shape
+    jlog, jcache = jax.jit(jmodel.prefill, static_argnames=("max_len",))(
+        jp, jnp.asarray(prompt, jnp.int32), max_len=max_len)
+    tlog, tcache = model.prefill(tp, torch.from_numpy(prompt),
+                                 max_len=max_len, device=CPU)
+    np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+    assert set(tcache) == set(jcache)
+    for name in jcache:
+        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]),
+                                   **MODEL_TOL, err_msg=name)
+    decode = jax.jit(jmodel.decode)
+    pos = np.full((B,), S, np.int32)
+    for _ in range(steps):
+        jtok = np.asarray(jnp.argmax(jlog, -1))[:, None]
+        ttok = tlog.argmax(-1)[:, None]
+        assert np.array_equal(ttok.numpy(), jtok)
+        jlog, jcache = decode(jp, jcache, jnp.asarray(jtok, jnp.int32),
+                              jnp.asarray(pos))
+        tlog, tcache = model.decode(tp, tcache, ttok, pos, device=CPU)
+        np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+        pos = pos + 1
+    for name in jcache:
+        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]),
+                                   **MODEL_TOL, err_msg=name)
+
+
+def test_hybrid_window_wraps_like_reference():
+    """zamba2 with an 8-token window: prefill keeps the trailing window of
+    the 16 prompt rows, and 8 decode steps write slots pos % 8, wrapping
+    round the window cache, with kv_len = min(pos + 1, 8)."""
+    arch = "zamba2-1.2b"
+    jcfg = dataclasses.replace(jconfigs.smoke_reduce(
+        jconfigs.get_arch(arch)), sliding_window=8)
+    cfg = dataclasses.replace(tconfigs.smoke_reduce(tconfigs.get_arch(arch)),
+                              sliding_window=8)
+    jp = jget_model(jcfg).init(jax.random.PRNGKey(1))
+    tp = lm_params_from_jax(jax.tree.map(np.asarray, jp), device=CPU)
+    prompt = np.random.RandomState(7).randint(0, cfg.vocab_size, (2, 16))
+    _greedy_parity(jget_model(jcfg), jp, get_model(cfg), tp, prompt, 16, 8)
+
+
+@pytest.mark.parametrize("arch_id", RECURRENT)
+def test_serve_main_on_cpu_recurrent(arch_id, capsys):
+    res = serve.main(["--arch", arch_id, "--batch", "2", "--prompt-len", "8",
+                      "--tokens", "5", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2
+    assert lines[0].startswith(f"[serve] {arch_id}-smoke: prefill 2x8 in ")
+    assert "decoded 10 tokens in" in lines[0]
+    assert lines[1].startswith("[serve] sample: [")
+    assert res["tokens"].shape == (2, 5)
