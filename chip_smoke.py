@@ -6,7 +6,10 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
   device   the card's name and power limit (nvidia-smi), torch and nvcc
-  build    nvcc-builds the CUDA kernels from src/repro_torch/kernels/csrc
+  build    nvcc-builds the CUDA kernels from src/repro_torch/kernels/csrc;
+           records each attention kernel's registers and spills (ptxas -v)
+           and the tensor-core instructions (HMMA/HGMMA) cuobjdump finds in
+           the bf16 flash kernel's SASS, and fails if it finds none
   kernels  each CUDA kernel against its plain torch version and the numpy
            mirror (torch.equal), on the grouped-inference test cases, a
            Tree (T=1, D=6) and a fat flush (M=2, R=4096, T=24, D=5); times
@@ -28,11 +31,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
            device times
   attn_kernels
            each attention kernel against its plain version in float32 and
-           bf16 (2e-3 / 2e-2): flash at the prefill shape, a ragged S, a
-           window with D=64 and a right-aligned non-causal case; decode at
-           the serving cache with ragged kv_len and with a window.  Times
-           the kernel, its plain version and PyTorch's
-           scaled_dot_product_attention (a yardstick only) by CUDA events
+           bf16 (2e-3 / 2e-2): flash at nemo's and zamba2's prefill shapes,
+           a ragged S, a window with D=64 and a right-aligned non-causal
+           case; decode at both serving caches, with ragged kv_len and with
+           a window.  Times the kernel, its plain version and PyTorch's
+           scaled_dot_product_attention (a yardstick only) by CUDA events,
+           and the kernel's own device time under torch.profiler
   serve_parity
            the smoke-reduced mistral-nemo-12b (float32, TF32 off): prefill
            2x16 then 8 greedy decode steps on the card through the kernels,
@@ -105,8 +109,9 @@ FLEET = 1000
 PARITY_FLEET = 100
 SOURCES = {"forest_infer": "src/repro_torch/kernels/csrc/forest.cu",
            "forest_infer_grouped": "src/repro_torch/kernels/csrc/forest.cu",
-           "flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
-           "decode_attention": "src/repro_torch/kernels/csrc/attention.cu",
+           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "decode_attention":
+               "src/repro_torch/kernels/csrc/decode_attention.cu",
            "rwkv6_scan": "src/repro_torch/kernels/csrc/recurrence.cu",
            "mamba2_ssd": "src/repro_torch/kernels/csrc/recurrence.cu"}
 REPLACES = {"forest_infer": "src/repro/kernels/forest.py:70",
@@ -127,16 +132,25 @@ KITCHEN_SINK = dict(intensity=9.0, kill_tt=0.22, suspend_tt=0.12,
 SERVE_ARCH = "mistral-nemo-12b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 64
 PROFILED_STEPS = 16
-# (B, S, Skv, H, Hkv, D, causal, window); "main" is the prefill's shape
+# (B, S, Skv, H, Hkv, D, causal, window); "main" is nemo's prefill shape,
+# "zamba2" zamba2's shared attention in prefill
 FLASH_CASES = {"main": (4, 1024, 1024, 32, 8, 128, True, 0),
+               "zamba2": (4, 1024, 1024, 32, 32, 64, True, 4096),
                "ragged": (4, 1000, 1000, 32, 8, 128, True, 0),
                "window": (4, 1024, 1024, 16, 4, 64, True, 256),
                "right_aligned": (4, 256, 1024, 32, 8, 128, False, 0)}
-# (B, Smax, H, Hkv, D, window, kv_len); "main" is the last decode step's
+# (B, Smax, H, Hkv, D, window, kv_len); "main" is nemo's last decode
+# step's, "zamba2" zamba2's (its W = 1088-row window cache, full)
 DECODE_CASES = {"main": (4, 1088, 32, 8, 128, 0, (1088,) * 4),
+                "zamba2": (4, 1088, 32, 32, 64, 4096, (1088,) * 4),
                 "ragged": (4, 1088, 32, 8, 128, 0, (1025, 1088, 1, 530)),
                 "window": (4, 1088, 32, 8, 128, 256, (1088, 700, 256, 3))}
 ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py:17-19
+ATTN_KERNELS = ("flash_attention", "decode_attention")
+# the CUDA kernels' names (a profiler trace's kernel names contain them)
+KERNEL_KINDS = ("flash_attention", "decode_attention", "rwkv6_scan",
+                "mamba2_ssd")
+DEVICE_TIMED = 20    # calls profiled per case for a kernel's device time
 
 # the recurrent serving runs, the same traffic as SERVE_ARCH's
 RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
@@ -189,12 +203,35 @@ def phase_device(torch) -> str:
     return smi
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Build the library; each attention kernel's registers and spills from
+    the ptxas report, and the tensor-core instructions in the bf16 flash
+    kernel's SASS (fails if cuobjdump is there and finds none)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib = _build.load()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(pathlib.Path(lib._name).relative_to(ROOT))})
+    seconds = time.perf_counter() - t0
+    usage = {m: u for m, u in _build.ptxas_usage(
+        _build.ptxas_report().read_text()).items()
+        if any(k in m for k in ATTN_KERNELS)}
+    tc = _build.tensor_core_instructions()
+    names = _build.demangle(set(usage) | set(tc or {}))
+    record = {"phase": "build", "seconds": seconds,
+              "library": str(pathlib.Path(lib._name).relative_to(ROOT)),
+              "attention_kernels": {names[m]: u for m, u in usage.items()}}
+    if tc is None:
+        record["tensor_core_instructions"] = "no cuobjdump in the toolkit"
+    else:
+        flash_tc = {names[m]: n for m, n in tc.items()
+                    if "flash_attention_mma_kernel" in m}
+        record["tensor_core_instructions"] = {
+            names[m]: n for m, n in tc.items()
+            if any(k in m for k in ATTN_KERNELS)}
+        check(bool(flash_tc) and all(flash_tc.values()),
+              f"no tensor-core instruction in the bf16 flash kernel's SASS "
+              f"({flash_tc})")
+    emit(record)
+    return record
 
 
 def _data(n, f, seed):
@@ -661,15 +698,35 @@ def _bound_ms(nbytes, flop, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _kernel_device_ms(torch, fn, kind: str, n=DEVICE_TIMED) -> float | None:
+    """The mean device time of the kernels whose name contains ``kind``
+    over n calls of fn under torch.profiler (after one warm-up call), per
+    call; None if the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kind in e.name]
+    return sum(us) / n / 1e3 if us else None
+
+
 def phase_attn_kernels(torch, dev):
     """Each attention kernel against its plain version on the card, in
     float32 and bf16; times at every case by CUDA events: the kernel, the
-    plain version and scaled_dot_product_attention on the same work."""
+    plain version and scaled_dot_product_attention on the same work (where
+    it computes the same function: no window that hides a key); the
+    kernel's own device time under torch.profiler."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
-    timing: dict = {"flash_attention": {}, "decode_attention": {}}
+    max_err = dict.fromkeys(ATTN_KERNELS, 0.0)
+    timing: dict = {k: {} for k in ATTN_KERNELS}
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -684,6 +741,11 @@ def phase_attn_kernels(torch, dev):
         max_err[kernel] = max(max_err[kernel], err)
         return err
 
+    def sdpa(q, k, v, causal):
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         for case, (B, S, Skv, H, Hkv, D, causal, window) in \
@@ -695,19 +757,19 @@ def phase_attn_kernels(torch, dev):
             plain = ops.flash_attention(q, k, v, impl="torch", **kw)
             rec = {"max_abs_err": hold("flash_attention", case, dtype, got,
                                        plain)}
-            rec["ms"] = _time_ms(
-                torch, lambda: ops.flash_attention(q, k, v, impl="cuda", **kw),
-                n=20, warmup=3)
+
+            def kernel():
+                return ops.flash_attention(q, k, v, impl="cuda", **kw)
+            rec["ms"] = _time_ms(torch, kernel)
+            rec["device_ms"] = _kernel_device_ms(torch, kernel,
+                                                 "flash_attention")
             rec["plain_ms"] = _time_ms(
                 torch, lambda: ops.flash_attention(q, k, v, impl="torch",
                                                    **kw), n=5, warmup=1)
-            library = None
-            if not window and (S == Skv or not causal):
-                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-                library = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), n=20,
-                    warmup=3)
-            rec["library_ms"] = library
+            # SDPA's is_causal aligns queries left: the same function only
+            # where S == Skv or nothing is masked
+            same = (not window or window >= Skv) and (S == Skv or not causal)
+            rec["library_ms"] = sdpa(q, k, v, causal) if same else None
             rec["bound_ms"], rec["bound_by"] = _bound_ms(
                 *_flash_work(B, S, Skv, H, Hkv, D, causal, window,
                              q.element_size()), dname)
@@ -724,16 +786,18 @@ def phase_attn_kernels(torch, dev):
                                          impl="torch")
             rec = {"max_abs_err": hold("decode_attention", case, dtype, got,
                                        plain)}
-            rec["ms"] = _time_ms(torch, lambda: ops.decode_attention(
-                q, k, v, kv_len, window=window, impl="cuda"))
+
+            def kernel():
+                return ops.decode_attention(q, k, v, kv_len, window=window,
+                                            impl="cuda")
+            rec["ms"] = _time_ms(torch, kernel)
+            rec["device_ms"] = _kernel_device_ms(torch, kernel,
+                                                 "decode_attention")
             rec["plain_ms"] = _time_ms(torch, lambda: ops.decode_attention(
                 q, k, v, kv_len, window=window, impl="torch"), n=20)
-            library = None
-            if not window and all(n == Smax for n in lens):
-                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-                library = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, enable_gqa=True))
-            rec["library_ms"] = library
+            same = (not window or window >= Smax) and all(
+                n == Smax for n in lens)
+            rec["library_ms"] = sdpa(q, k, v, False) if same else None
             rec["bound_ms"], rec["bound_by"] = _bound_ms(
                 *_decode_work(B, Smax, H, Hkv, D, window, lens,
                               q.element_size()), dname)
@@ -880,10 +944,7 @@ def _serve_trace(torch, prof) -> tuple:
             continue
         name, us = e.name, e.time_range.elapsed_us()
         low = name.lower()
-        kind = next((k for k in ("flash_attention_kernel",
-                                 "decode_attention_kernel",
-                                 "decode_merge_kernel", "rwkv6_scan_kernel",
-                                 "mamba2_ssd_kernel") if k in name),
+        kind = next((k for k in KERNEL_KINDS if k in name),
                     "memcpy" if "memcpy" in low or "memset" in low else
                     "gemm" if any(t in low for t in ("gemm", "nvjet",
                                                       "cutlass")) else
@@ -1026,20 +1087,14 @@ def _profiled_serving(torch, model, params, prompt, max_len, dev) -> dict:
 
 def _per_call_ms(record) -> dict:
     """Each kernel's own mean device time per launch on the main path, from
-    the profiled prefill and decode (the decode kernel's launch is its two
-    passes); None where the profiler saw none."""
+    the profiled prefill (flash, the scans) and decode (decode attention);
+    None where the profiler saw none."""
     pre_us = record["profiled_prefill_device_us"]
     dec_us = record["profiled_decode"]["device_us"]
     out = {}
-    for k, trace in (("flash_attention", pre_us), ("rwkv6_scan", pre_us),
-                     ("mamba2_ssd", pre_us)):
-        kind = trace.get(f"{k}_kernel")
+    for k in KERNEL_KINDS:
+        kind = (dec_us if k == "decode_attention" else pre_us).get(k)
         out[k] = None if kind is None else kind["mean_us"] / 1e3
-    out["decode_attention"] = None
-    if "decode_attention_kernel" in dec_us:
-        out["decode_attention"] = (
-            dec_us["decode_attention_kernel"]["mean_us"]
-            + dec_us.get("decode_merge_kernel", {}).get("mean_us", 0.0)) / 1e3
     return out
 
 
@@ -1315,6 +1370,14 @@ def phase_serve_recurrent(torch, dev, arch: str) -> tuple:
     return launches, _per_call_ms(record), call_err
 
 
+def _tensor_cores(build: dict, kernel: str):
+    """The build phase's SASS counts of ``kernel``'s instantiations."""
+    tc = build["tensor_core_instructions"]
+    if not isinstance(tc, dict):
+        return tc
+    return {n: c for n, c in tc.items() if n.startswith(kernel)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -1331,7 +1394,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = phase_device(torch)
-    phase_build()
+    build = phase_build()
     timing, max_err = phase_kernels(torch, dev)
     cfg, base, trained = phase_fit(torch, dev)
     launches = phase_slice(torch, dev, cfg, base, trained)
@@ -1359,8 +1422,9 @@ def main(argv=None) -> int:
             "device_ms": (None if device_us[k] is None
                           else device_us[k] / 1e3),
             "by_rows": {str(b): timing[k][b] for b in TIMED_ROWS}})
-    for k in ("flash_attention", "decode_attention"):
+    for k in ATTN_KERNELS:
         main_t = attn_timing[k]["main/bfloat16"]
+        zamba_t = attn_timing[k]["zamba2/bfloat16"]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
@@ -1374,7 +1438,14 @@ def main(argv=None) -> int:
             "shape": FLASH_CASES["main"] if k == "flash_attention"
             else DECODE_CASES["main"],
             "device_ms": serve_device_ms[k],
-            "device_ms_zamba2": zamba_ms[k]})
+            "device_ms_zamba2": zamba_ms[k],
+            "device_ms_attn_kernels": main_t["device_ms"],
+            "zamba2": {key: zamba_t[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "ptxas": {n: u for n, u in build["attention_kernels"].items()
+                      if n.startswith(k)},
+            "tensor_core_instructions": _tensor_cores(build, k)})
     for k, launches, device_ms, cases in (
             ("rwkv6_scan", rwkv_launches, rwkv_ms, RWKV_CASES),
             ("mamba2_ssd", zamba_launches, zamba_ms, SSD_CASES)):

@@ -3,11 +3,17 @@
 ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``build/repro_torch/`` at the
 root of the checkout: one ``nvcc`` per source, all started together, then
-one link.  The file name carries a hash of the sources and the
-flags, so a change to either builds anew and a stale library is never
-loaded.  The build uses only the sources in the repository.  A missing
-``nvcc``, a failed compile or a failed load raises: no caller falls back to
-the plain versions."""
+one link.  The file name carries a hash of every file under ``csrc/`` (the
+sources and the headers they include) and of the flags, so a change to
+any of them builds anew and a stale library is never loaded.  The build
+uses only the sources in the repository.  A missing ``nvcc``, a failed
+compile or link, or a failed load raises: no caller falls back to the plain
+versions.
+
+``ptxas`` reports each kernel's registers and spills (``-Xptxas=-v``); the
+report is kept beside the library (``ptxas_report``, parsed by
+``ptxas_usage``), and ``tensor_core_instructions`` counts the tensor-core
+instructions of each kernel in the built library's SASS."""
 
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,7 +30,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -46,16 +53,28 @@ def nvcc_path() -> str:
 
 
 def sources() -> list[pathlib.Path]:
+    """The translation units: one object each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def inputs() -> list[pathlib.Path]:
+    """Every file under ``csrc/`` the build may read: the sources and the
+    headers they include."""
+    return sorted(p for p in CSRC.rglob("*") if p.is_file())
 
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256()
-    for src in sources():
-        h.update(src.name.encode())
+    for src in inputs():
+        h.update(str(src.relative_to(CSRC)).encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def ptxas_report() -> pathlib.Path:
+    """The compilers' output of the build of ``library_path()``."""
+    return library_path().with_suffix(".ptxas.txt")
 
 
 def _run(cmd: list[str]) -> subprocess.Popen:
@@ -63,17 +82,20 @@ def _run(cmd: list[str]) -> subprocess.Popen:
                             stderr=subprocess.STDOUT, text=True)
 
 
-def _wait(jobs: list):
+def _wait(jobs: list) -> str:
     """Wait for every (process, command); raise on the first that failed,
-    after all have ended, so that no compiler outlives the build."""
-    failed = None
+    after all have ended, so that no compiler outlives the build.  Returns
+    their output."""
+    failed, outputs = None, []
     for proc, cmd in jobs:
         output, _ = proc.communicate()
+        outputs.append(output)
         if proc.returncode != 0 and failed is None:
             failed = (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                       f"{output}")
     if failed:
         raise RuntimeError(failed)
+    return "".join(outputs)
 
 
 def build() -> pathlib.Path:
@@ -94,10 +116,12 @@ def build() -> pathlib.Path:
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             jobs.append((_run(cmd), cmd))
             objs.append(str(obj))
-        _wait(jobs)
+        report = _wait(jobs)
         lib = work / "lib.so"
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *objs]
         _wait([(_run(cmd), cmd)])
+        (work / "ptxas.txt").write_text(report)
+        os.replace(work / "ptxas.txt", ptxas_report())
         os.replace(lib, out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -121,10 +145,8 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_launch.argtypes = [
                 p, p, p, p, i, i, i, i, i, i, i, i, i, p]
             lib.flash_attention_launch.restype = i
-            lib.decode_attention_chunks.argtypes = [i]
-            lib.decode_attention_chunks.restype = i
             lib.decode_attention_launch.argtypes = [
-                p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
+                p, p, p, p, p, i, i, i, i, i, i, i, i, p]
             lib.decode_attention_launch.restype = i
             lib.rwkv6_scan_launch.argtypes = [p] * 8 + [i] * 5 + [p]
             lib.rwkv6_scan_launch.restype = i
@@ -132,3 +154,79 @@ def load() -> ctypes.CDLL:
             lib.mamba2_ssd_launch.restype = i
             _LIB = lib
         return _LIB
+
+
+def ptxas_usage(report: str) -> dict:
+    """{kernel (mangled name): {"registers", "spill_stores", "spill_loads"}}
+    from ``ptxas -v`` output (bytes for the spills)."""
+    usage: dict = {}
+    current = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = usage.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_tensor_core_counts(sass: str) -> dict:
+    """{kernel (mangled name): number of HMMA/HGMMA instructions} from
+    ``cuobjdump -sass`` output."""
+    counts: dict = {}
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts.setdefault(current, 0)
+        elif current is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[current] += 1
+    return counts
+
+
+def _toolkit_tool(name: str) -> str | None:
+    tool = pathlib.Path(nvcc_path()).parent / name
+    return str(tool) if tool.is_file() else shutil.which(name)
+
+
+def tensor_core_instructions() -> dict | None:
+    """Tensor-core instructions per kernel in the built library's SASS, or
+    None when the toolkit has no ``cuobjdump``."""
+    tool = _toolkit_tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(build())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sass_tensor_core_counts(sass)
+
+
+def demangle(names) -> dict:
+    """{mangled: readable} through the toolkit's ``cu++filt``; names it
+    cannot read, or all of them without the tool, map to themselves."""
+    names = list(names)
+    tool = _toolkit_tool("cu++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True, timeout=60).stdout.splitlines()
+    return {n: _short(o) if o else n for n, o in zip(names, out)}
+
+
+def _short(demangled: str) -> str:
+    """``void <unnamed>::k<float, (int)64>(const float *, ...)`` ->
+    ``k<float, 64>``."""
+    s = re.sub(r"\((?:int|unsigned int)\)", "", demangled)
+    for ns in ("(anonymous namespace)::", "<unnamed>::"):
+        s = s.replace(ns, "")
+    s = s.removeprefix("void ")
+    return s.split("(")[0].strip()

@@ -1,14 +1,23 @@
-"""Launchers of the CUDA attention kernels (``csrc/attention.cu``).
+"""Launchers of the CUDA attention kernels (``csrc/flash_attention.cu``,
+``csrc/decode_attention.cu``).
 
 Each launcher checks what the kernel takes (device, dtype, shape,
-contiguity), allocates the output and any scratch, launches on the current
-stream of the tensors' device and raises if the launch was refused.  It does
-not synchronise.  The kernels replace the Pallas TPU kernels
-``repro/kernels/flash_attention.py:flash_attention`` and
+contiguity), allocates the output, launches on the current stream of the
+tensors' device and raises if the launch was refused.  It allocates no
+scratch and does not synchronise.  The kernels replace the Pallas TPU
+kernels ``repro/kernels/flash_attention.py:flash_attention`` and
 ``repro/kernels/decode_attention.py:decode_attention``; ``kernels.ref``
-holds their plain versions."""
+holds their plain versions.
+
+The launch geometry is computed here, or mirrored here where the kernel
+computes it from data on the card, so that the CPU tests can check it:
+``flash_schedule`` (the query tiles in launch order and the key tiles each
+visits) and ``decode_blocks`` / ``decode_block_ranges`` (the cluster size
+and each block's share of the live keys)."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,8 +25,55 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
-FLASH_MAX_GROUP = 64      # query heads per kv head: the block's 64 rows
-DECODE_MAX_GROUP = 16     # the decode kernel's register accumulators
+FLASH_MAX_GROUP = 64      # query heads per kv head: the float32 block's rows
+DECODE_MAX_GROUP = 16     # the decode kernel's register bucket
+FLASH_BLOCK_M = 128       # bf16 kernel: query rows per block (MMA_BM)
+FLASH_BLOCK_N = 64        # bf16 kernel: keys per tile (MMA_BN)
+DECODE_MAX_BLOCKS = 8     # the portable cluster size
+DECODE_KEYS_PER_BLOCK = 128
+DECODE_TARGET_BLOCKS = 264  # two blocks on each of the card's 132 SMs
+
+
+def flash_schedule(S: int, Skv: int, *, causal: bool, window: int) -> list:
+    """The bf16 flash kernel's work per query tile, in launch order (the
+    grid's slowest dimension, last query tile first): one (s0, s_end,
+    k_beg, k_end, n_key_tiles) per tile of FLASH_BLOCK_M query rows, as
+    ``flash_attention_mma_kernel`` computes it.  Keys [k_beg, k_end) are the
+    ones some row of the tile can see, walked in tiles of FLASH_BLOCK_N."""
+    offset = Skv - S
+    n_q = -(-S // FLASH_BLOCK_M)
+    out = []
+    for z in range(n_q):
+        s0 = (n_q - 1 - z) * FLASH_BLOCK_M
+        s_end = min(s0 + FLASH_BLOCK_M, S)
+        pos_first, pos_last = s0 + offset, s_end - 1 + offset
+        k_end = min(Skv, pos_last + 1) if causal else Skv
+        k_beg = max(0, pos_first - window + 1) if window else 0
+        out.append((s0, s_end, k_beg, k_end,
+                    -(-(k_end - k_beg) // FLASH_BLOCK_N)))
+    return out
+
+
+def decode_blocks(Smax: int, window: int, pairs: int) -> int:
+    """Blocks per (sequence, kv head) cluster for ``pairs`` clusters: at
+    least DECODE_KEYS_PER_BLOCK of the longest possible live range each,
+    and no more than it takes to give the grid DECODE_TARGET_BLOCKS blocks;
+    1 to DECODE_MAX_BLOCKS."""
+    live = window if 0 < window < Smax else Smax
+    return max(1, min(DECODE_MAX_BLOCKS,
+                      -(-live // DECODE_KEYS_PER_BLOCK),
+                      -(-DECODE_TARGET_BLOCKS // max(1, pairs))))
+
+
+def decode_block_ranges(kv_len: int, Smax: int, window: int,
+                        n_blocks: int) -> list:
+    """The keys [j0, j1) block r of a cluster reads for one sequence, as
+    ``decode_attention_kernel`` computes them on the card from kv_len."""
+    hi = min(kv_len, Smax)
+    lo = max(0, kv_len - window) if window else 0
+    live = max(0, hi - lo)
+    return [(lo + r * live // n_blocks, lo + (r + 1) * live // n_blocks)
+            for r in range(n_blocks)]
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -55,10 +111,18 @@ def _raise_on(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
+def _on(dev: torch.device):
+    """A context that makes ``dev`` the current device, entered only when it
+    is not already (a single-card process never pays for the switch)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
     """q: (B, S, H, D); k/v: (B, Skv, Hkv, D), Skv >= S; float32 or
     bfloat16, contiguous, on one CUDA device.  Returns (B, S, H, D) in q's
-    dtype."""
+    dtype.  bfloat16 runs on the tensor cores, float32 on the CUDA cores."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     _check_q(q, FLASH_MAX_GROUP, H, Hkv)
@@ -69,12 +133,11 @@ def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
         raise ValueError(f"queries are right-aligned: Skv ({Skv}) < S ({S})")
     out = torch.empty_like(q)
     lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             Skv, H, Hkv, D, DTYPES[q.dtype], int(bool(causal)), int(window),
-            stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "flash_attention")
     return out
 
@@ -82,28 +145,24 @@ def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
 def decode_attention(q, k, v, kv_len, *, window=0) -> torch.Tensor:
     """q: (B, 1, H, D); k/v: (B, Smax, Hkv, D) caches in q's dtype; kv_len:
     (B,) int32 live prefix lengths in [1, Smax].  Contiguous, on one CUDA
-    device.  Returns (B, 1, H, D) in q's dtype."""
+    device.  Returns (B, 1, H, D) in q's dtype: one launch, nothing
+    allocated but the output."""
     B, _, H, D = q.shape
     Smax, Hkv = k.shape[1], k.shape[2]
     _check_q(q, DECODE_MAX_GROUP, H, Hkv)
     dev = q.device
-    _check(q, "q", q.dtype, (B, 1, H, D), dev)
+    if q.shape[1] != 1:
+        raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     _check(k, "k", q.dtype, (B, Smax, Hkv, D), dev)
     _check(v, "v", q.dtype, (B, Smax, Hkv, D), dev)
     _check(kv_len, "kv_len", torch.int32, (B,), dev)
     out = torch.empty_like(q)
     lib = _build.load()
-    G = H // Hkv
-    chunks = lib.decode_attention_chunks(Smax)
-    part_m = torch.empty((B, Hkv, chunks, G), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_o = torch.empty((B, Hkv, chunks, G, D), dtype=torch.float32,
-                         device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
         rc = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
             out.data_ptr(), B, Smax, H, Hkv, D, DTYPES[q.dtype], int(window),
-            part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), stream)
+            decode_blocks(Smax, int(window), B * Hkv),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "decode_attention")
     return out

@@ -84,8 +84,10 @@ def test_kernel_rejects_bad_input(dev):
         ops.forest_infer(x.t(), fi, th, lv)
 
 
-# the shapes of chip_smoke.py's attn_kernels phase, plus head_dim 32 (the
-# smoke configs') with an odd group size
+# the shapes of chip_smoke.py's attn_kernels phase (nemo's and zamba2's
+# serving shapes among them), plus head_dim 32 (the smoke configs') with an
+# odd group size, a single query and a key count that is no multiple of the
+# bf16 kernel's 64-key tile
 # (B, S, Skv, H, Hkv, D, causal, window)
 FLASH_CASES = {
     "prefill": (4, 1024, 1024, 32, 8, 128, True, 0),
@@ -93,13 +95,20 @@ FLASH_CASES = {
     "window": (4, 1024, 1024, 16, 4, 64, True, 256),
     "right_aligned": (4, 256, 1024, 32, 8, 128, False, 0),
     "d32_g3": (2, 200, 456, 12, 4, 32, False, 0),
+    "zamba2": (4, 1024, 1024, 32, 32, 64, True, 4096),
+    "one_query": (3, 1, 77, 8, 2, 128, True, 0),
+    "skv_ragged_tile": (2, 100, 300, 8, 2, 64, True, 40),
 }
-# (B, Smax, H, Hkv, D, window, kv_len)
+# (B, Smax, H, Hkv, D, window, kv_len); "one_key" and "window_one_block"
+# leave every cluster block but one without a key
 DECODE_CASES = {
     "serve": (4, 1088, 32, 8, 128, 0, (1088,) * 4),
     "ragged": (4, 1088, 32, 8, 128, 0, (1025, 1088, 1, 530)),
     "window": (4, 1088, 32, 8, 128, 256, (1088, 700, 256, 3)),
     "d32_g2": (2, 300, 4, 2, 32, 0, (17, 300)),
+    "zamba2": (4, 1088, 32, 32, 64, 4096, (1088,) * 4),
+    "one_key": (4, 1088, 32, 8, 128, 0, (1, 1, 1, 1)),
+    "window_one_block": (4, 1088, 32, 8, 128, 1, (1088, 700, 5, 1)),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -146,6 +155,25 @@ def test_decode_attention_kernel(dev, case, dtype):
     want = ops.decode_attention(q, k, v, kv_len, window=window, impl="torch")
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_decode_attention_back_to_back(dev):
+    """Two calls in a row on the same caches with different live lengths
+    each give the plain version's answer: nothing of one call's clusters
+    survives into the next."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B, Smax, H, Hkv, D = 4, 1088, 32, 8, 128
+    q = _randn(gen, (B, 1, H, D), "bf16", dev)
+    k = _randn(gen, (B, Smax, Hkv, D), "bf16", dev)
+    v = _randn(gen, (B, Smax, Hkv, D), "bf16", dev)
+    first = torch.tensor((1088, 3, 700, 64), dtype=torch.int32, device=dev)
+    second = torch.tensor((5, 1088, 1, 999), dtype=torch.int32, device=dev)
+    got1 = ops.decode_attention(q, k, v, first)
+    got2 = ops.decode_attention(q, k, v, second)
+    for got, lens in ((got1, first), (got2, second)):
+        want = ops.decode_attention(q, k, v, lens, impl="torch")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_tol("bf16"))
 
 
 def test_attention_kernels_reject_bad_input(dev):
