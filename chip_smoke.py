@@ -7,19 +7,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   device   the card's name and power limit (nvidia-smi), torch and nvcc
   build    nvcc-builds the CUDA kernels from src/repro_torch/kernels/csrc;
-           records each attention kernel's registers and spills (ptxas -v)
-           and the tensor-core instructions (HMMA/HGMMA) cuobjdump finds in
-           the bf16 flash kernel's SASS, and fails if it finds none
-  kernels  each CUDA kernel against its plain torch version and the numpy
-           mirror (torch.equal), on the grouped-inference test cases, a
-           Tree (T=1, D=6) and a fat flush (M=2, R=4096, T=24, D=5); times
-           both with CUDA events at 1, 13 and 4096 rows
+           records each attention and forest kernel's registers and spills
+           (ptxas -v; fails unless all 18 forest instances are there) and
+           the tensor-core instructions (HMMA/HGMMA) cuobjdump finds in the
+           bf16 flash kernel's SASS, and fails if it finds none
+  kernels  each forest kernel against its plain torch version and the
+           numpy mirror (torch.equal), on the grouped-inference test cases,
+           a Tree (T=1, D=6) and a fat flush (M=2, R=4096, T=24, D=5); at
+           1, 13 and 4096 rows, and after the slice phase at the brokered
+           run's mean flush size (~308 rows), the CUDA-event time of a call,
+           the kernel's own device time under torch.profiler, the plain
+           version's time, the bound, the device time of one trivial launch
+           (the launch floor) and the whole host call against the numpy
+           mirror; the host time of each step of a 13-row decision
   fit      the 1000-node map_heavy baseline run, then R.F. fitted on its
            trace on the card and on the CPU: equal parameters
   slice    the §5 protocol (compare("fifo")) on the card at 1000 nodes with
            invariant checking, then the same ATLAS run behind the batched
-           BrokerPredictor; zero violations, each run launched its kernel,
-           equal metrics, and every probability either run served equal to
+           BrokerPredictor; zero violations, exactly 1,681 forest_infer and
+           1,368 forest_infer_grouped launches, equal metrics, and every probability either run served equal to
            the numpy mirror on the same rows and parameters
   parity   100-node ATLAS runs under the baseline chaos and under the
            kitchen_sink scenario (where ATLAS predicts failures), each with
@@ -121,7 +127,9 @@ REPLACES = {"forest_infer": "src/repro/kernels/forest.py:70",
             "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:52",
             "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:49"}
 FOREST_KERNELS = ("forest_infer", "forest_infer_grouped")
-MAIN_ROWS = {"forest_infer": 13, "forest_infer_grouped": 4096}
+# the 1000-node runs' forest launches: one per scored decision (compare)
+# and one per broker flush (the brokered run)
+SCALAR_LAUNCHES, BROKER_LAUNCHES = 1681, 1368
 # the JAX package's "kitchen_sink" chaos scenario (repro/cluster/scenarios.py),
 # as values: at 100 nodes ATLAS predicts failures under it and relocates
 KITCHEN_SINK = dict(intensity=9.0, kill_tt=0.22, suspend_tt=0.12,
@@ -211,14 +219,20 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     lib = _build.load()
     seconds = time.perf_counter() - t0
-    usage = {m: u for m, u in _build.ptxas_usage(
-        _build.ptxas_report().read_text()).items()
-        if any(k in m for k in ATTN_KERNELS)}
+    all_usage = _build.ptxas_usage(_build.ptxas_report().read_text())
+    usage = {m: u for m, u in all_usage.items()
+             if any(k in m for k in ATTN_KERNELS)}
+    forest_usage = {m: u for m, u in all_usage.items()
+                    if any(k in m for k in FOREST_KERNELS)}
+    check(len(forest_usage) == 18, f"18 forest kernel instances (D = 1..8 "
+          f"and run-time D, two kernels), ptxas saw {len(forest_usage)}")
     tc = _build.tensor_core_instructions()
-    names = _build.demangle(set(usage) | set(tc or {}))
+    names = _build.demangle(set(usage) | set(forest_usage) | set(tc or {}))
     record = {"phase": "build", "seconds": seconds,
               "library": str(pathlib.Path(lib._name).relative_to(ROOT)),
-              "attention_kernels": {names[m]: u for m, u in usage.items()}}
+              "attention_kernels": {names[m]: u for m, u in usage.items()},
+              "forest_kernels": {names[m]: u
+                                 for m, u in forest_usage.items()}}
     if tc is None:
         record["tensor_core_instructions"] = "no cuobjdump in the toolkit"
     else:
@@ -271,44 +285,126 @@ def _bound(rows, F, T, D, M, trees_per_row):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(torch, dev):
+def _forest_fixtures(torch, dev):
+    """A Tree (T=1, D=6), two R.F.s (T=24, D=5) fitted on the card, and
+    4096 rows of N_FEATURES random features."""
     from repro_torch.cluster.telemetry import N_FEATURES
-    from repro_torch.kernels import ops
     from repro_torch.ml import forest
     from repro_torch.ml.models import Tree
+    Xt, yt = _data(2000, N_FEATURES, 20)
+    tree = Tree(device=dev).fit(Xt, yt).params
+    check(tree.feat_idx.shape == (1, 6), "Tree is T=1, D=6")
+    rf = [forest.fit_oblivious_forest(Xt, t, n_trees=24, depth=5, seed=s,
+                                      device=dev)
+          for s, t in ((0, yt), (1, 1 - yt))]
+    rows = np.random.RandomState(21).rand(4096, N_FEATURES).astype(np.float32)
+    return tree, rf, rows
 
-    max_err = dict.fromkeys(FOREST_KERNELS, 0.0)
-    n_held = dict.fromkeys(FOREST_KERNELS, 0)
 
-    def hold(kernel, got, plain, numpy_want):
-        check(torch.equal(got, plain), f"{kernel}: kernel != plain version")
-        check(np.array_equal(got.cpu().numpy(), numpy_want),
-              f"{kernel}: kernel != numpy mirror")
-        if got.numel():
-            max_err[kernel] = max(max_err[kernel],
-                                  float((got - plain).abs().max()))
-        n_held[kernel] += 1
+def _per_call_us(torch, fn, reps=20, inner=50) -> float:
+    """Mean host time of one call of fn (perf_counter), over reps batches
+    of inner calls; the card is synchronised between batches, outside the
+    clock, so that queued work never holds an enqueue back."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return 1e6 * total / (reps * inner)
 
-    def grouped_case(groups):
-        packed = forest.pack_forests([p for p, _ in groups])
-        x = np.concatenate([r for _, r in groups]).astype(np.float32)
-        offsets = np.zeros(len(groups) + 1, np.int32)
-        np.cumsum([r.shape[0] for _, r in groups], out=offsets[1:])
-        args = (torch.from_numpy(x).to(dev),
-                torch.from_numpy(offsets).to(dev), *packed.on(dev))
-        got = ops.forest_infer_grouped(*args, impl="cuda")
-        plain = ops.forest_infer_grouped(*args, impl="torch")
-        want = np.concatenate([forest.forest_predict_np(p, r)
-                               for p, r in groups])
-        hold("forest_infer_grouped", got, plain, want)
-        return args
 
-    def single_case(params, x):
-        args = (torch.from_numpy(x).to(dev), *params.on(dev))
-        hold("forest_infer", ops.forest_infer(*args, impl="cuda"),
-             ops.forest_infer(*args, impl="torch"),
-             forest.forest_predict_np(params, x))
-        return args
+def forest_host_split(torch, dev, params, X) -> dict:
+    """Host microseconds per call of each step of a scoring decision at
+    X's rows, by perf_counter: the launcher's parts (checks, output, library
+    lookup, device switch, stream lookup, the ctypes launch, the counter),
+    the whole ``ops.forest_infer``, the host path's parts around it and the
+    whole ``forest_predict`` against the numpy mirror.  Steps that only one
+    version of the code has are timed where they exist, so the function
+    also times the code before the staged path."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import forest as fk
+    from repro_torch.ml import forest
+    B, F = X.shape
+    x = torch.from_numpy(X).to(dev)
+    fi, th, lv = params.on(dev)
+    T, D = fi.shape
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    lib = _build.load()
+    index = x.get_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the entry point takes pinned host buffers (none here) since the
+    # staged host path; before it, it ended with the stream
+    no_copies = (None, 0, None) if len(
+        lib.forest_infer_launch.argtypes) == 13 else ()
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def model_checks():
+        fk._check(fi, "feat_idx", torch.int32, (T, D), x.device)
+        fk._check(th, "thresholds", torch.float32, (T, D), x.device)
+        fk._check(lv, "leaves", torch.float32, (T, 1 << D), x.device)
+
+    steps = {
+        "check_x": lambda: fk._check_x(x),
+        "check_model_tensors": model_checks,
+        "torch_empty": lambda: torch.empty(B, dtype=torch.float32,
+                                           device=dev),
+        "build_load": _build.load,
+        "device_context": device_context,
+        "current_device": torch.cuda.current_device,
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "ctypes_launch": lambda: lib.forest_infer_launch(
+            x.data_ptr(), B, F, fi.data_ptr(), th.data_ptr(), lv.data_ptr(),
+            T, D, out.data_ptr(), *no_copies, stream),
+        "launch_count": lambda: ops._count("forest_infer"),
+        "ops_forest_infer": lambda: ops.forest_infer(x, fi, th, lv),
+        "feat_idx_max": lambda: int(params.feat_idx.max()),
+        "params_on": lambda: params.on(dev),
+        "rows_h2d_pageable": lambda: torch.from_numpy(X).to(dev),
+        "out_d2h_sync": lambda: out.cpu().numpy(),
+        "forest_predict": lambda: forest.forest_predict(params, X,
+                                                        device=dev),
+        "numpy_mirror": lambda: forest.forest_predict_np(params, X),
+    }
+    if hasattr(fk, "_check_once"):
+        named = (("feat_idx", fi), ("thresholds", th), ("leaves", lv))
+        steps["check_model_once"] = lambda: fk._check_once(
+            x, named, model_checks)
+    if hasattr(forest, "_staging"):
+        staged = forest._staging(dev)
+        views = staged.views_for(B, F)
+        host_words, host_out = views.host
+
+        def d2h_pinned_sync():
+            host_out.copy_(views.out, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+        steps.update({
+            "check_width_cached": lambda: forest._check_width(params, F),
+            "staging_views": lambda: staged.views_for(B, F),
+            "fill_pinned": lambda: np.copyto(views.rows, X),
+            "rows_h2d_pinned": lambda: views.x.view(-1).copy_(
+                host_words, non_blocking=True),
+            "out_d2h_pinned_sync": d2h_pinned_sync,
+            "ops_forest_infer_staged": lambda: ops.forest_infer(
+                views.x, fi, th, lv, out=views.out, host=views.host)})
+    split = {name: _per_call_us(torch, fn) for name, fn in steps.items()}
+    torch.cuda.synchronize()
+    return {"rows": B, "us_per_call": split}
+
+
+def phase_kernels(torch, dev):
+    """Both forest kernels against their plain versions and the numpy
+    mirror, bitwise, on the grouped-inference cases, a Tree and R.F. at
+    TIMED_ROWS and the fat flush; then their times at TIMED_ROWS (see
+    forest_timing) and the host split of a 13-row decision."""
+    from repro_torch.ml import forest
 
     # the grouped-inference test fixtures, refit on the card
     X, y = _data(300, 12, 0)
@@ -339,55 +435,122 @@ def phase_kernels(torch, dev):
             check(np.array_equal(o, forest.forest_predict_np(p, r)),
                   "forest_predict_grouped != numpy mirror")
         # the kernel itself, one segment per group (repeats included)
-        grouped_case(groups)
+        _grouped_case(torch, dev, groups)
 
     # a Tree (T=1, D=6) and the fat flush (M=2, R=4096, T=24, D=5)
-    Xt, yt = _data(2000, N_FEATURES, 20)
-    tree = Tree(device=dev).fit(Xt, yt).params
-    check(tree.feat_idx.shape == (1, 6), "Tree is T=1, D=6")
-    rf = [forest.fit_oblivious_forest(Xt, t, n_trees=24, depth=5, seed=s,
-                                      device=dev)
-          for s, t in ((0, yt), (1, 1 - yt))]
-    rows = np.random.RandomState(21).rand(4096, N_FEATURES).astype(np.float32)
+    tree, rf, rows = _forest_fixtures(torch, dev)
     for B in TIMED_ROWS:
-        single_case(tree, rows[:B])
-        single_case(rf[0], rows[:B])
-    grouped_case([(rf[0], rows[:2048]), (rf[1], rows[2048:])])
+        _single_case(torch, dev, tree, rows[:B])
+        _single_case(torch, dev, rf[0], rows[:B])
+    _grouped_case(torch, dev, [(rf[0], rows[:2048]), (rf[1], rows[2048:])])
     torch.cuda.synchronize()
 
-    # timing at the main path's widths: R.F. (T=24, D=5, F=N_FEATURES)
     timing = {k: {} for k in FOREST_KERNELS}
     for B in TIMED_ROWS:
-        sargs = (torch.from_numpy(rows[:B]).to(dev), *rf[0].on(dev))
-        half = B // 2
-        gargs = grouped_case([(rf[0], rows[:half]), (rf[1], rows[half:B])])
-        t = {}
-        for kernel, args, fn in (
-                ("forest_infer", sargs, ops.forest_infer),
-                ("forest_infer_grouped", gargs, ops.forest_infer_grouped)):
-            kms = _time_ms(torch, lambda: fn(*args, impl="cuda"))
-            pms = _time_ms(torch, lambda: fn(*args, impl="torch"))
-            M = 1 if kernel == "forest_infer" else 2
-            bms, by = _bound(B, N_FEATURES, 24, 5, M, 24 * B)
-            timing[kernel][B] = {"ms": kms, "plain_ms": pms,
-                                 "bound_ms": bms, "bound_by": by}
-            t[kernel] = timing[kernel][B]
-        # the whole per-decision call: host rows -> card -> kernel -> host
-        reps = 200
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            forest.forest_predict(rf[0], rows[:B], device=dev)
-        call_ms = 1e3 * (time.perf_counter() - t0) / reps
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            forest.forest_predict_np(rf[0], rows[:B])
-        np_ms = 1e3 * (time.perf_counter() - t0) / reps
-        emit({"phase": "kernels", "rows": B, **t,
-              "forest_predict_call_ms": call_ms,
-              "numpy_mirror_host_ms": np_ms})
-    emit({"phase": "kernels", "held": "torch.equal to plain and numpy",
-          "cases": n_held, "max_abs_err": max_err})
-    return timing, max_err
+        for k, rec in forest_timing(torch, dev, rf, rows[:B]).items():
+            timing[k][B] = rec
+    split = forest_host_split(torch, dev, rf[0], rows[:13])
+    emit({"phase": "kernels", "host_split": split})
+    return timing
+
+
+FOREST_HELD = {"cases": dict.fromkeys(FOREST_KERNELS, 0),
+               "max_abs_err": dict.fromkeys(FOREST_KERNELS, 0.0)}
+
+
+def _hold_forest(torch, kernel, got, plain, numpy_want):
+    check(torch.equal(got, plain), f"{kernel}: kernel != plain version")
+    check(np.array_equal(got.cpu().numpy(), numpy_want),
+          f"{kernel}: kernel != numpy mirror")
+    if got.numel():
+        FOREST_HELD["max_abs_err"][kernel] = max(
+            FOREST_HELD["max_abs_err"][kernel],
+            float((got - plain).abs().max()))
+    FOREST_HELD["cases"][kernel] += 1
+
+
+def _grouped_case(torch, dev, groups):
+    """Hold the grouped kernel on ``groups`` (one segment each); returns
+    its arguments."""
+    from repro_torch.kernels import ops
+    from repro_torch.ml import forest
+    packed = forest.pack_forests([p for p, _ in groups])
+    x = np.concatenate([r for _, r in groups]).astype(np.float32)
+    offsets = np.zeros(len(groups) + 1, np.int32)
+    np.cumsum([r.shape[0] for _, r in groups], out=offsets[1:])
+    args = (torch.from_numpy(x).to(dev),
+            torch.from_numpy(offsets).to(dev), *packed.on(dev))
+    got = ops.forest_infer_grouped(*args, impl="cuda")
+    plain = ops.forest_infer_grouped(*args, impl="torch")
+    want = np.concatenate([forest.forest_predict_np(p, r)
+                           for p, r in groups])
+    _hold_forest(torch, "forest_infer_grouped", got, plain, want)
+    return args
+
+
+def _single_case(torch, dev, params, x):
+    from repro_torch.kernels import ops
+    from repro_torch.ml import forest
+    args = (torch.from_numpy(x).to(dev), *params.on(dev))
+    _hold_forest(torch, "forest_infer", ops.forest_infer(*args, impl="cuda"),
+                 ops.forest_infer(*args, impl="torch"),
+                 forest.forest_predict_np(params, x))
+    return args
+
+
+def forest_timing(torch, dev, rf, rows) -> dict:
+    """Both forest kernels at len(rows) rows of R.F. (T=24, D=5; the
+    grouped kernel with M=2, the rows split in halves), held bitwise first:
+    the median CUDA-event time of a call (host wrapper inside), the
+    kernel's own device time under torch.profiler, the plain version's
+    time, the bound, and the device and CUDA-event times of one trivial
+    launch (torch.zeros(1)) as the launch floor.  Then the whole per-decision
+    call (rows from the host to the card and back) against the numpy mirror
+    on the host, by perf_counter.  Emits one record and returns
+    {kernel: record}."""
+    from repro_torch.cluster.telemetry import N_FEATURES
+    from repro_torch.kernels import ops
+    from repro_torch.ml import forest
+    B = rows.shape[0]
+    half = B // 2
+    sargs = _single_case(torch, dev, rf[0], rows)
+    gargs = _grouped_case(torch, dev, [(rf[0], rows[:half]),
+                                       (rf[1], rows[half:])])
+    floor = {"device_ms": _kernel_device_ms(
+        torch, lambda: torch.zeros(1, device=dev), ""),
+        "ms": _time_ms(torch, lambda: torch.zeros(1, device=dev))}
+    t = {}
+    for kernel, args, fn, M in (
+            ("forest_infer", sargs, ops.forest_infer, 1),
+            ("forest_infer_grouped", gargs, ops.forest_infer_grouped, 2)):
+        bms, by = _bound(B, N_FEATURES, 24, 5, M, 24 * B)
+        t[kernel] = {
+            "ms": _time_ms(torch, lambda: fn(*args, impl="cuda")),
+            "device_ms": _kernel_device_ms(
+                torch, lambda: fn(*args, impl="cuda"), kernel + "_kernel"),
+            "plain_ms": _time_ms(torch, lambda: fn(*args, impl="torch")),
+            "bound_ms": bms, "bound_by": by, "launch_floor": floor}
+    # the whole per-decision call: host rows -> card -> kernel -> host
+    groups = [(rf[0], rows[:half]), (rf[1], rows[half:])]
+    calls = {
+        "forest_predict_call_ms": lambda: forest.forest_predict(
+            rf[0], rows, device=dev),
+        "numpy_mirror_host_ms": lambda: forest.forest_predict_np(rf[0], rows),
+        "forest_predict_grouped_call_ms": lambda: (
+            forest.forest_predict_grouped(groups, device=dev)),
+        "grouped_numpy_host_ms": lambda: forest.forest_predict_grouped(
+            groups, impl="numpy")}
+    host = {name: _per_call_us(torch, fn, reps=10, inner=20) / 1e3
+            for name, fn in calls.items()}
+    emit({"phase": "kernels", "rows": B, **t, **host})
+    return t
+
+
+def phase_flush_kernels(torch, dev, rows_per_flush: int) -> dict:
+    """Both forest kernels at the brokered run's mean flush size, as
+    forest_timing (the grouped kernel's main-path shape)."""
+    _, rf, rows = _forest_fixtures(torch, dev)
+    return forest_timing(torch, dev, rf, rows[:rows_per_flush])
 
 
 def _slice_config(fleet_size, device, chaos=None):
@@ -510,8 +673,10 @@ def _check_served(log: list, what: str) -> dict:
 def phase_slice(torch, dev, cfg, base_metrics, trained):
     """The §5 protocol, then the same ATLAS run behind the BrokerPredictor.
     The launch counts are zeroed before each run and read after it: the
-    scalar path (compare) must launch forest_infer, the brokered run
-    forest_infer_grouped."""
+    scalar path (compare) must launch forest_infer and the brokered run
+    forest_infer_grouped, exactly SCALAR_LAUNCHES and BROKER_LAUNCHES
+    times.  Returns the launches and the brokered run's mean rows per
+    flush."""
     from repro_torch.cluster.experiment import compare, run_scheduler
     from repro_torch.kernels import ops
     from repro_torch.online.broker import BrokerPredictor
@@ -532,10 +697,13 @@ def phase_slice(torch, dev, cfg, base_metrics, trained):
         torch.cuda.synchronize()
         t_broker = time.perf_counter() - t0
         launches_broker = ops.launch_counts()
-    check(launches_compare["forest_infer"] > 0,
-          "compare never launched forest_infer")
-    check(launches_broker["forest_infer_grouped"] > 0,
-          "the brokered run never launched forest_infer_grouped")
+    check(launches_compare["forest_infer"] == SCALAR_LAUNCHES,
+          f"compare launched forest_infer {launches_compare['forest_infer']}"
+          f" times, not {SCALAR_LAUNCHES}")
+    check(launches_broker["forest_infer_grouped"] == BROKER_LAUNCHES,
+          f"the brokered run launched forest_infer_grouped "
+          f"{launches_broker['forest_infer_grouped']} times, not "
+          f"{BROKER_LAUNCHES}")
 
     base, atlas = result["base"], result["atlas"]
     for name, m in (("base", base), ("atlas", atlas), ("broker", brokered)):
@@ -566,8 +734,9 @@ def phase_slice(torch, dev, cfg, base_metrics, trained):
           "atlas": atlas["atlas"], "deltas": result["deltas"],
           "tasks_total": atlas["tasks_total"],
           "invariant_checks": atlas["invariant_checks"]})
-    return {"forest_infer": launches_compare["forest_infer"],
-            "forest_infer_grouped": launches_broker["forest_infer_grouped"]}
+    launches = {"forest_infer": launches_compare["forest_infer"],
+                "forest_infer_grouped": launches_broker["forest_infer_grouped"]}
+    return launches, round(served["broker"]["rows"] / BROKER_LAUNCHES)
 
 
 def phase_parity(torch, dev):
@@ -1395,9 +1564,15 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device(torch)
     build = phase_build()
-    timing, max_err = phase_kernels(torch, dev)
+    timing = phase_kernels(torch, dev)
     cfg, base, trained = phase_fit(torch, dev)
-    launches = phase_slice(torch, dev, cfg, base, trained)
+    launches, flush_rows = phase_slice(torch, dev, cfg, base, trained)
+    for k, rec in phase_flush_kernels(torch, dev, flush_rows).items():
+        timing[k][flush_rows] = rec
+    main_rows = {"forest_infer": 13, "forest_infer_grouped": flush_rows}
+    max_err = FOREST_HELD["max_abs_err"]
+    emit({"phase": "kernels", "held": "torch.equal to plain and numpy",
+          **FOREST_HELD})
     phase_parity(torch, dev)
     device_us = phase_trace(torch, dev, cfg, trained)
     attn_timing, attn_err = phase_attn_kernels(torch, dev)
@@ -1410,18 +1585,22 @@ def main(argv=None) -> int:
     rwkv_launches, rwkv_ms, _ = recurrent["rwkv6-1.6b"]
     zamba_launches, zamba_ms, _ = recurrent["zamba2-1.2b"]
     kernels = []
-    for k in ("forest_infer", "forest_infer_grouped"):
-        main_t = timing[k][MAIN_ROWS[k]]
+    for k in FOREST_KERNELS:
+        main_t = timing[k][main_rows[k]]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": max_err[k], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"], "library_ms": None,
-            "rows": MAIN_ROWS[k],
+            "rows": main_rows[k],
             "device_ms": (None if device_us[k] is None
                           else device_us[k] / 1e3),
-            "by_rows": {str(b): timing[k][b] for b in TIMED_ROWS}})
+            "device_ms_timed": main_t["device_ms"],
+            "launch_floor_device_ms": main_t["launch_floor"]["device_ms"],
+            "by_rows": {str(b): timing[k][b] for b in sorted(timing[k])},
+            "ptxas": {n: u for n, u in build["forest_kernels"].items()
+                      if k + "_kernel" in n}})
     for k in ATTN_KERNELS:
         main_t = attn_timing[k]["main/bfloat16"]
         zamba_t = attn_timing[k]["zamba2/bfloat16"]

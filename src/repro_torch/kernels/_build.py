@@ -131,16 +131,21 @@ def build() -> pathlib.Path:
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every entry
     point's argument types declared (a pointer passed without them would be
-    cut to 32 bits)."""
+    cut to 32 bits).  Once loaded it is returned without taking the lock:
+    every kernel launch asks for it."""
     global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.forest_infer_launch.argtypes = [p, i, i, p, p, p, i, i, p, p]
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.forest_infer_launch.argtypes = [
+                p, i, i, p, p, p, i, i, p, p, ll, p, p]
             lib.forest_infer_launch.restype = i
             lib.forest_infer_grouped_launch.argtypes = [
-                p, i, i, p, i, p, p, p, p, i, i, p, p]
+                p, i, i, p, i, p, p, p, p, i, i, p, p, ll, p, p]
             lib.forest_infer_grouped_launch.restype = i
             lib.flash_attention_launch.argtypes = [
                 p, p, p, p, i, i, i, i, i, i, i, i, i, p]

@@ -72,34 +72,47 @@ def _resolve(impl: str | None, x: torch.Tensor, name: str = "x") -> str:
     return impl
 
 
-def forest_infer(x, feat_idx, thresholds, leaves, *, impl=None):
-    """Mean leaf value of one oblivious forest: x (B, F) -> (B,)."""
+def _plain(out, host, result):
+    if host is not None:
+        raise ValueError("host staging goes with the CUDA kernel")
+    return result if out is None else out.copy_(result)
+
+
+def forest_infer(x, feat_idx, thresholds, leaves, *, impl=None, out=None,
+                 host=None):
+    """Mean leaf value of one oblivious forest: x (B, F) -> (B,), written
+    into ``out`` (a (B,) float32 tensor on x's device) when given.  The
+    kernel also takes ``host`` = (host_in, host_out), pinned buffers that it
+    copies to x before the launch and from the scores after it, waiting for
+    both (``kernels.forest.forest_infer``)."""
     if _resolve(impl, x) == "torch":
-        return ref.forest_infer_ref(x, feat_idx, thresholds, leaves)
+        return _plain(out, host, ref.forest_infer_ref(x, feat_idx,
+                                                      thresholds, leaves))
     if not x.shape[0]:                        # nothing to launch
-        return x.new_empty(0)
+        return x.new_empty(0) if out is None else out
     from repro_torch.kernels import forest as fk
-    out = fk.forest_infer(x, feat_idx, thresholds, leaves)
+    out = fk.forest_infer(x, feat_idx, thresholds, leaves, out, host)
     _count("forest_infer")
     return out
 
 
 def forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves, n_trees,
-                         *, impl=None):
+                         *, impl=None, out=None, host=None):
     """Block-diagonal pass over the packed multi-model layout (see
     ``ml.forest.pack_forests``); rows stacked segment by segment, segment m
-    being rows ``seg_start[m]:seg_start[m + 1]``."""
+    being rows ``seg_start[m]:seg_start[m + 1]``.  ``out`` and ``host`` as
+    in ``forest_infer``."""
     if _resolve(impl, x) == "torch":
         sizes = (seg_start[1:] - seg_start[:-1]).long()
         seg_ids = torch.repeat_interleave(
             torch.arange(sizes.shape[0], device=x.device), sizes)
-        return ref.forest_infer_grouped_ref(x, seg_ids, feat_idx, thresholds,
-                                            leaves, n_trees)
+        return _plain(out, host, ref.forest_infer_grouped_ref(
+            x, seg_ids, feat_idx, thresholds, leaves, n_trees))
     if not x.shape[0]:                        # nothing to launch
-        return x.new_empty(0)
+        return x.new_empty(0) if out is None else out
     from repro_torch.kernels import forest as fk
     out = fk.forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves,
-                                  n_trees)
+                                  n_trees, out, host)
     _count("forest_infer_grouped")
     return out
 

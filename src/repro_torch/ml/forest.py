@@ -25,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -319,15 +320,110 @@ def _leaf_votes_blockdiag(packed: PackedForests, x: np.ndarray,
     return packed.leaves.reshape(-1).take(flat)
 
 
-def _check_width(feat_idx: np.ndarray, n_features: int):
-    """The kernels gather x[:, feat_idx] unchecked: validate on the host."""
+def _check_width(owner, n_features: int):
+    """The kernels gather x[:, feat_idx] unchecked: validate on the host.
+    ``owner`` (a ForestParams or PackedForests) keeps the feature counts its
+    ``feat_idx`` array passed, so a decision does not recompute the max."""
+    feat_idx = owner.feat_idx
+    passed = owner.__dict__.setdefault("_width_checked", {})
+    if passed.get(n_features) is feat_idx:
+        return
     if feat_idx.size and int(feat_idx.max()) >= n_features:
         raise ValueError(f"forest tests feature {int(feat_idx.max())} but "
                          f"rows have {n_features} features")
+    passed[n_features] = feat_idx
 
 
 def _rows_on(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+def _capacity(n: int) -> int:
+    """Buffer size for n words: the next power of two, at least 1024."""
+    return max(1024, 1 << max(n - 1, 0).bit_length())
+
+
+_VIEWS_MAX = 256        # shapes whose staging views one thread keeps
+
+
+class _Views(NamedTuple):
+    """The staging buffers cut to one call's shape."""
+    rows: np.ndarray        # (R, F) pinned host rows, filled by the caller
+    offsets: np.ndarray     # (M+1,) int32 pinned host segment offsets
+    x: torch.Tensor         # (R, F) device rows
+    seg_start: torch.Tensor  # (M+1,) int32 device offsets
+    out: torch.Tensor       # (R,) device scores
+    host: tuple             # (pinned input words, pinned scores)
+    scores: np.ndarray      # (R,) the pinned scores, read after the call
+
+
+class _Staging:
+    """One thread's reused scoring buffers on one CUDA device: a pinned host
+    input (rows, then the grouped path's int32 offsets), its device copy, a
+    device output and a pinned host output, each grown by powers of two.
+
+    A call fills ``rows`` (and ``offsets``) and passes ``x``, ``out`` and
+    ``host`` to the kernel, whose C entry point copies the input to the
+    card, launches into the device output and copies the scores back, all
+    on one stream, and synchronises once (``kernels.forest.forest_infer``'s
+    ``host``); the caller then copies ``scores``, which the next call
+    overwrites.  Views are kept by shape, since the scheduler scores the
+    same few shapes again and again."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host_in = self.dev_in = self.dev_out = self.host_out = None
+        self.views: dict = {}
+
+    def _grow(self, n_in: int, n_out: int):
+        if self.host_in is None or self.host_in.numel() < n_in:
+            cap = _capacity(n_in)
+            self.host_in = torch.empty(cap, dtype=torch.float32,
+                                       pin_memory=True)
+            self.dev_in = torch.empty(cap, dtype=torch.float32,
+                                      device=self.device)
+            self.views.clear()
+        if self.dev_out is None or self.dev_out.numel() < n_out:
+            cap = _capacity(n_out)
+            self.dev_out = torch.empty(cap, dtype=torch.float32,
+                                       device=self.device)
+            self.host_out = torch.empty(cap, dtype=torch.float32,
+                                        pin_memory=True)
+            self.views.clear()
+
+    def views_for(self, rows: int, width: int, n_offsets: int = 0) -> _Views:
+        """The buffers cut to ``rows`` rows of ``width`` features and
+        ``n_offsets`` int32 offsets after them."""
+        key = (rows, width, n_offsets)
+        hit = self.views.get(key)
+        if hit is None:
+            n_x, n_in = rows * width, rows * width + n_offsets
+            self._grow(n_in, rows)
+            if len(self.views) >= _VIEWS_MAX:     # flush sizes vary widely
+                self.views.clear()
+            host = self.host_in.numpy()
+            hit = self.views[key] = _Views(
+                rows=host[:n_x].reshape(rows, width),
+                offsets=host[n_x:n_in].view(np.int32),
+                x=self.dev_in[:n_x].view(rows, width),
+                seg_start=self.dev_in[n_x:n_in].view(torch.int32),
+                out=self.dev_out[:rows],
+                host=(self.host_in[:n_in], self.host_out[:rows]),
+                scores=self.host_out.numpy()[:rows])
+        return hit
+
+
+_STAGING = threading.local()
+
+
+def _staging(device: torch.device) -> _Staging:
+    """This thread's buffers on ``device`` (the broker scores from client
+    threads; a buffer must not change while its copies are in flight)."""
+    per_device = _STAGING.__dict__.setdefault("by_device", {})
+    st = per_device.get(device)
+    if st is None:
+        st = per_device[device] = _Staging(device)
+    return st
 
 
 def forest_predict_grouped(groups, *, impl: str | None = None,
@@ -370,18 +466,30 @@ def forest_predict_grouped(groups, *, impl: str | None = None,
     if not total:
         return outs, 0
 
-    # columnar row assembly: one preallocated block, segments contiguous
+    # columnar row assembly: one block, segments contiguous (on the card
+    # straight into the pinned staging buffer)
     first = groups[by_params[order[0]][0]][1]
+    width = first.shape[1]
     group_span: list = [None] * len(groups)
     seg_start: dict[int, int] = {}
-    if len(by_params) == 1 and len(by_params[order[0]]) == 1:
+    staged = None
+    if impl != "numpy":
+        dev = resolve_device(device)
+        packed = _packed_for([params_of[p] for p in order])
+        _check_width(packed, width)
+        if dev.type == "cuda" and impl != "torch":
+            staged = _staging(dev).views_for(total, width, len(order) + 1)
+            x, offsets = staged.rows, staged.offsets
+    if staged is None and len(by_params) == 1 \
+            and len(by_params[order[0]]) == 1:
         # one model, one row block (e.g. a broker column view): use it as-is
         i = by_params[order[0]][0]
         x = np.ascontiguousarray(first, np.float32)
         group_span[i] = (0, total)
         seg_start[order[0]] = 0
     else:
-        x = np.empty((total, first.shape[1]), np.float32)
+        if staged is None:
+            x = np.empty((total, width), np.float32)
         pos = 0
         for pid in order:
             seg_start[pid] = pos
@@ -392,15 +500,20 @@ def forest_predict_grouped(groups, *, impl: str | None = None,
                 pos += b
 
     if impl != "numpy":
-        dev = resolve_device(device)
-        packed = _packed_for([params_of[p] for p in order])
-        _check_width(packed.feat_idx, x.shape[1])
-        offsets = np.zeros(len(order) + 1, np.int32)
+        if staged is None:
+            offsets = np.empty(len(order) + 1, np.int32)
+        offsets[0] = 0
         np.cumsum([counts[p] for p in order], out=offsets[1:])
-        fi, th, lv, nt = packed.on(dev)
-        scores = ops.forest_infer_grouped(
-            _rows_on(x, dev), torch.from_numpy(offsets).to(dev), fi, th, lv,
-            nt, impl=impl).cpu().numpy()
+        model = packed.on(dev)
+        if staged is not None:
+            ops.forest_infer_grouped(staged.x, staged.seg_start, *model,
+                                     impl=impl, out=staged.out,
+                                     host=staged.host)
+            scores = staged.scores.copy()
+        else:
+            scores = ops.forest_infer_grouped(
+                _rows_on(x, dev), torch.from_numpy(offsets).to(dev), *model,
+                impl=impl).cpu().numpy()
         for i, span in enumerate(group_span):
             if span is not None:
                 outs[i] = scores[span[0]:span[1]]
@@ -439,10 +552,20 @@ def forest_predict(params: ForestParams, X: np.ndarray, *,
 
     impl=None scores on ``device`` at every batch size: the CUDA kernel on
     the card, its plain torch version on the CPU.  "numpy" takes the numpy
-    mirror; "cuda"/"torch" force a path.  All are bitwise equal."""
+    mirror; "cuda"/"torch" force a path.  All are bitwise equal.  On the
+    card the rows go through this thread's staging buffers (one copy each
+    way, one synchronisation) unless ``impl="torch"``; the result is a new
+    array either way."""
     if impl == "numpy":
         return forest_predict_np(params, X)
     dev = resolve_device(device)
-    _check_width(params.feat_idx, X.shape[1])
-    return ops.forest_infer(_rows_on(X, dev), *params.on(dev),
-                            impl=impl).cpu().numpy()
+    _check_width(params, X.shape[1])
+    model = params.on(dev)
+    if dev.type != "cuda" or impl == "torch":
+        return ops.forest_infer(_rows_on(X, dev), *model,
+                                impl=impl).cpu().numpy()
+    staged = _staging(dev).views_for(*X.shape)
+    staged.rows[...] = X
+    ops.forest_infer(staged.x, *model, impl=impl, out=staged.out,
+                     host=staged.host)
+    return staged.scores.copy()

@@ -9,12 +9,16 @@ skip.
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py"""
 
+import threading
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.ml import forest
+from repro_torch.online.broker import PredictionBroker
 
 pytestmark = pytest.mark.cuda
 
@@ -33,11 +37,20 @@ def _forest(rs, T, D, F):
         leaves=rs.randn(T, 1 << D).astype(np.float32))
 
 
-@pytest.mark.parametrize("B,F,T,D", [
-    (1, 22, 24, 5), (13, 22, 1, 6), (100, 32, 64, 6), (4096, 22, 24, 5),
-])
+# R.F.'s main-path shapes and earlier cases, then every T in {1, 24, 33, 64}
+# (one row per warp up to 32 rows per warp; lanes striding over trees when
+# T > 32) with every D in {1, 5, 8, 9} (D = 9 takes the run-time-D
+# instance; T = 64 at D = 8 and 9 reads the model where it lies instead of
+# staging it) at the scheduler's, the broker's and a fat flush's row counts
+FOREST_SHAPES = [(1, 22, 24, 5), (13, 22, 1, 6), (100, 32, 64, 6),
+                 (4096, 22, 24, 5)] + [
+    (B, 22, T, D) for T in (1, 24, 33, 64) for D in (1, 5, 8, 9)
+    for B in (1, 13, 308, 4096)]
+
+
+@pytest.mark.parametrize("B,F,T,D", FOREST_SHAPES)
 def test_forest_infer_kernel_bitwise(dev, B, F, T, D):
-    rs = np.random.RandomState(B)
+    rs = np.random.RandomState(B + 100 * T + D)
     p = _forest(rs, T, D, F)
     x = rs.randn(B, F).astype(np.float32)
     args = (torch.from_numpy(x).to(dev), *p.on(dev))
@@ -48,12 +61,23 @@ def test_forest_infer_kernel_bitwise(dev, B, F, T, D):
     assert np.array_equal(got.cpu().numpy(), forest.forest_predict_np(p, x))
 
 
+# (T, D) of the models packed into one flush, cycled over the segments:
+# true tree counts below the padded T; a pack over 32 trees (lanes stride)
+# that is staged; one of D = 9 that is neither compiled for its depth nor
+# staged
+PACKS = {"rf": [(24, 5), (8, 3), (16, 4), (1, 6)],
+         "wide": [(33, 5), (64, 5), (2, 1)],
+         "deep": [(64, 8), (33, 9), (24, 5), (1, 9)]}
+
+
+@pytest.mark.parametrize("pack", PACKS)
 @pytest.mark.parametrize("sizes", [(1,), (0, 5, 0, 7), (2048, 2048),
-                                   (65, 1, 5, 12)])
-def test_forest_infer_grouped_kernel_bitwise(dev, sizes):
+                                   (65, 1, 5, 12), (154, 154), (0, 0, 3)])
+def test_forest_infer_grouped_kernel_bitwise(dev, sizes, pack):
     rs = np.random.RandomState(len(sizes))
-    shapes = [(24, 5), (8, 3), (16, 4), (1, 6)]
-    models = [_forest(rs, *shapes[i % 4], 22) for i in range(len(sizes))]
+    shapes = PACKS[pack]
+    models = [_forest(rs, *shapes[i % len(shapes)], 22)
+              for i in range(len(sizes))]
     x = rs.randn(sum(sizes), 22).astype(np.float32)
     groups, at = [], 0
     for m, b in zip(models, sizes):
@@ -68,8 +92,79 @@ def test_forest_infer_grouped_kernel_bitwise(dev, sizes):
     np.cumsum(sizes, out=offsets[1:])
     args = (torch.from_numpy(x).to(dev), torch.from_numpy(offsets).to(dev),
             *packed.on(dev))
-    assert torch.equal(ops.forest_infer_grouped(*args, impl="cuda"),
-                       ops.forest_infer_grouped(*args, impl="torch"))
+    before = ops.launch_counts()["forest_infer_grouped"]
+    got = ops.forest_infer_grouped(*args, impl="cuda")
+    assert ops.launch_counts()["forest_infer_grouped"] == before + 1
+    assert torch.equal(got, ops.forest_infer_grouped(*args, impl="torch"))
+
+
+def test_forest_predict_staged_results_stay(dev):
+    """The staged host path returns a new array each call: a later call
+    (of another size, which grows the buffers, or the same size) leaves an
+    earlier result as it was.  Two threads scoring at once each get their
+    own rows' scores."""
+    rs = np.random.RandomState(3)
+    p, q = _forest(rs, 24, 5, 22), _forest(rs, 8, 3, 22)
+    xs = [rs.rand(b, 22).astype(np.float32) for b in (13, 4096, 13, 1)]
+    got = [forest.forest_predict(p, x, device=dev) for x in xs]
+    grouped, _ = forest.forest_predict_grouped(
+        [(p, xs[0]), (q, xs[2])], device=dev)
+    again, _ = forest.forest_predict_grouped([(q, xs[1])], device=dev)
+    for x, g in zip(xs, got):
+        assert np.array_equal(g, forest.forest_predict_np(p, x))
+    assert np.array_equal(grouped[0], forest.forest_predict_np(p, xs[0]))
+    assert np.array_equal(grouped[1], forest.forest_predict_np(q, xs[2]))
+    assert np.array_equal(again[0], forest.forest_predict_np(q, xs[1]))
+
+    results = [[], []]
+
+    def score(i):
+        for j in range(50):
+            x = xs[(i + j) % 4][:1 + j % 13]
+            results[i].append((x, forest.forest_predict(p, x, device=dev)))
+
+    threads = [threading.Thread(target=score, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    for x, g in results[0] + results[1]:
+        assert np.array_equal(g, forest.forest_predict_np(p, x))
+
+
+def test_prediction_broker_two_threads(dev):
+    """Two clients on their own threads behind one PredictionBroker: each
+    request gets the scores of its own rows, as if scored alone."""
+    rs = np.random.RandomState(4)
+    models = [SimpleNamespace(params=_forest(rs, 24, 5, 22)),
+              SimpleNamespace(params=_forest(rs, 8, 3, 22))]
+    requests = [[[(models[(i + j) % 2],
+                   rs.rand(1 + (7 * i + j) % 13, 22).astype(np.float32))]
+                 for j in range(40)] for i in range(2)]
+    broker = PredictionBroker(device=dev)
+    broker.add_clients(2)
+    got = [[None] * 40 for _ in range(2)]
+
+    def client(i):
+        try:
+            for j, groups in enumerate(requests[i]):
+                got[i][j] = broker.submit(groups)
+        finally:
+            broker.done()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive(), "broker deadlocked"
+    for i in range(2):
+        for j, [(model, x)] in enumerate(requests[i]):
+            want = np.clip(forest.forest_predict_np(model.params, x),
+                           0.0, 1.0).astype(np.float32)
+            assert np.array_equal(got[i][j][0], want)
+    assert broker.n_requests == 80 and broker.n_flushes > 0
 
 
 def test_kernel_rejects_bad_input(dev):
@@ -82,6 +177,19 @@ def test_kernel_rejects_bad_input(dev):
         ops.forest_infer(x, fi, th, lv.cpu())
     with pytest.raises(ValueError):
         ops.forest_infer(x.t(), fi, th, lv)
+    # the staged launch takes pinned host buffers that fit x's buffer
+    out = torch.empty(4, device=dev)
+    pinned = torch.zeros(32, pin_memory=True)
+    with pytest.raises(ValueError, match="pinned"):
+        ops.forest_infer(x, fi, th, lv, out=out,
+                         host=(torch.zeros(32), torch.zeros(4)))
+    with pytest.raises(ValueError, match="words"):
+        ops.forest_infer(x, fi, th, lv, out=out,
+                         host=(torch.zeros(33, pin_memory=True),
+                               torch.zeros(4, pin_memory=True)))
+    with pytest.raises(ValueError, match="host staging"):
+        ops.forest_infer(x, fi, th, lv, impl="torch",
+                         host=(pinned, torch.zeros(4, pin_memory=True)))
 
 
 # the shapes of chip_smoke.py's attn_kernels phase (nemo's and zamba2's

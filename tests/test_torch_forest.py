@@ -234,3 +234,70 @@ def test_device_copies_are_cached(fitted):
     packed = tforest._packed_for([fitted["a"][1], fitted["b"][1]])
     assert tforest._packed_for([fitted["a"][1], fitted["b"][1]]) is packed
     assert packed.on(CPU) is packed.on(CPU)
+
+
+def test_width_check_is_cached_and_still_raises(fitted):
+    """forest_predict checks once per (forest, feature count) that the rows
+    hold every feature the forest tests; a forest testing a feature the rows
+    lack raises on the first call and after calls that passed."""
+    tp = fitted["a"][1]
+    top = int(tp.feat_idx.max())
+    Xq = _data(seed=14)[0][:13]
+    want = tforest.forest_predict_np(tp, Xq)
+    for _ in range(2):                     # the second call hits the cache
+        assert np.array_equal(tforest.forest_predict(tp, Xq, device=CPU),
+                              want)
+        outs, _ = tforest.forest_predict_grouped([(tp, Xq)], device=CPU)
+        assert np.array_equal(outs[0], want)
+    narrow = Xq[:, :top]                   # lacks the highest feature
+    for _ in range(2):
+        with pytest.raises(ValueError, match=f"feature {top}"):
+            tforest.forest_predict(tp, narrow, device=CPU)
+        with pytest.raises(ValueError, match=f"feature {top}"):
+            tforest.forest_predict_grouped([(tp, narrow)], device=CPU)
+    # a forest whose feature indices are replaced is checked anew
+    wide = tforest.ForestParams(tp.feat_idx.copy(), tp.thresholds, tp.leaves)
+    assert np.array_equal(tforest.forest_predict(wide, Xq, device=CPU), want)
+    wide.feat_idx = np.full_like(tp.feat_idx, Xq.shape[1])
+    with pytest.raises(ValueError, match="rows have 12 features"):
+        tforest.forest_predict(wide, Xq, device=CPU)
+
+
+@pytest.mark.parametrize("n,cap", [(0, 1024), (1, 1024), (1024, 1024),
+                                   (1025, 2048), (4096 * 22 + 3, 131072)])
+def test_staging_capacity_is_a_power_of_two(n, cap):
+    assert tforest._capacity(n) == cap
+
+
+def test_staging_views_share_the_buffers(monkeypatch):
+    """The staging buffers' views, built on the CPU (pinned memory needs a
+    card, so it is left out here): the rows and the int32 offsets lie one
+    after the other in the input words; the device views alias the device
+    buffers; a shape's views are kept until a buffer grows."""
+    empty = torch.empty
+    monkeypatch.setattr(tforest.torch, "empty", lambda *a, pin_memory=False,
+                        **kw: empty(*a, **kw))
+    st = tforest._Staging(torch.device(CPU))
+    views = st.views_for(13, 22, 3)
+    assert st.views_for(13, 22, 3) is views
+    assert views.rows.shape == (13, 22) and views.offsets.dtype == np.int32
+    views.rows[...] = 1.5
+    views.offsets[:] = [0, 4, 13]
+    host_words, host_out = views.host
+    assert host_words.numel() == 13 * 22 + 3
+    st.dev_in[:host_words.numel()].copy_(host_words)   # the C call's copy
+    assert torch.equal(views.x, torch.full((13, 22), 1.5))
+    assert views.seg_start.dtype == torch.int32
+    assert views.seg_start.tolist() == [0, 4, 13]
+    assert views.x.data_ptr() == st.dev_in.data_ptr()
+    assert views.out.shape == host_out.shape == views.scores.shape == (13,)
+    assert views.out.data_ptr() == st.dev_out.data_ptr()
+    host_out.fill_(0.25)
+    assert (views.scores == 0.25).all()
+    cap = st.host_in.numel()
+    st.views_for(4096, 22)                # grows: earlier views dropped
+    assert st.host_in.numel() == tforest._capacity(4096 * 22) > cap
+    assert st.views_for(13, 22, 3) is not views
+    for rows in range(1, 300):              # a bounded set of shapes is kept
+        st.views_for(rows, 22)
+    assert len(st.views) <= tforest._VIEWS_MAX
