@@ -7,10 +7,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   device   the card's name and power limit (nvidia-smi), torch and nvcc
   build    nvcc-builds the CUDA kernels from src/repro_torch/kernels/csrc;
-           records each attention and forest kernel's registers and spills
-           (ptxas -v; fails unless all 18 forest instances are there) and
-           the tensor-core instructions (HMMA/HGMMA) cuobjdump finds in the
-           bf16 flash kernel's SASS, and fails if it finds none
+           records each attention, forest and scan kernel's registers and
+           spills (ptxas -v; fails unless all 18 forest instances and the
+           rwkv6 instance of each head_dim, in both dtypes, are there) and
+           the tensor-core
+           instructions (HMMA/HGMMA) cuobjdump finds in the bf16 flash and
+           SSD kernels' SASS, and fails if it finds none in either
   kernels  each forest kernel against its plain torch version and the
            numpy mirror (torch.equal), on the grouped-inference test cases,
            a Tree (T=1, D=6) and a fat flush (M=2, R=4096, T=24, D=5); at
@@ -62,10 +64,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
   scan_kernels
            the RWKV6 and Mamba2 scan kernels against their plain versions in
            float32 and bf16 (y 5e-3 / 5e-2, the float32 state 1e-3): the
-           serving prefill shape, tests/test_kernels.py's scan cases and a
-           ragged S = 1000; the sequence in two calls with the state carried
-           equals one call; the kernel and its plain version timed by CUDA
-           events (no single PyTorch call computes either recurrence)
+           serving prefill shape, tests/test_kernels.py's scan cases, a
+           ragged S = 1000, S = 1, 63, 65 and 4096, and strong decays (the
+           model's RWKV decay with exact zeros; Mamba2's A down to -50); the
+           sequence in two calls with the state carried equals one call
+           (bitwise, but within the tolerances for the chunked bf16 Mamba2
+           kernel, whose chunk boundaries move with the cut); the kernel
+           timed by CUDA events at every case, at the serving shape by
+           scan_timing, which adds its own device time under
+           torch.profiler; the plain version timed at the serving shape (no
+           single PyTorch call computes either recurrence)
   recurrent_serve_parity
            the smoke-reduced rwkv6-1.6b and zamba2-1.2b, as serve_parity:
            every kernel call within 1e-4 of its plain version, tokens equal
@@ -83,7 +91,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
            prefill and the decode loop's idle share
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
-and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
+and last {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --timing {forest,scan} [--src DIR]
+
+only times the forest kernels (forest_timing at TIMED_ROWS) or the scan
+kernels (scan_timing), importing the port from DIR (default: this
+checkout's src/), and prints the timing as its last JSON line: run it on
+an older tree from git archive and on this one in turns to compare two
+versions on one card.  Without a CUDA device, or without
 the repository's src/ beside this file, it exits non-zero and prints no
 result.  Imports nothing of JAX or of the JAX package."""
 
@@ -164,20 +180,31 @@ DEVICE_TIMED = 20    # calls profiled per case for a kernel's device time
 RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
 SCAN_KERNELS = ("rwkv6_scan", "mamba2_ssd")
 # (B, S, H, Dh) and (B, S, H, P, N): "main" is the serving prefill's shape,
-# k16/k64/k32 tests/test_kernels.py:86-155's cases, then a ragged S
+# k16/k64/k32 tests/test_kernels.py:86-155's cases, then a ragged S, the
+# shortest sequence, both sides of a chunk boundary (the rwkv6 kernel stages
+# 16 steps, the bf16 SSD kernel takes chunks of 64) and a long sequence;
+# "*_strong" cases draw strong decays (_rwkv_inputs, _ssd_inputs)
 RWKV_CASES = {"main": (4, 1024, 32, 64), "k16": (1, 64, 2, 16),
               "k64": (2, 128, 4, 64), "k32": (1, 256, 8, 32),
-              "ragged": (4, 1000, 32, 64)}
+              "ragged": (4, 1000, 32, 64), "s1": (4, 1, 32, 64),
+              "s63": (4, 63, 32, 64), "s65": (4, 65, 32, 64),
+              "s4096": (1, 4096, 4, 64), "main_strong": (4, 1024, 32, 64),
+              "s1_strong": (4, 1, 32, 64)}
 SSD_CASES = {"main": (4, 1024, 64, 64, 64), "k16": (1, 64, 2, 16, 16),
              "k64": (2, 128, 4, 64, 64), "k32": (1, 256, 8, 32, 16),
-             "ragged": (4, 1000, 64, 64, 64)}
+             "ragged": (4, 1000, 64, 64, 64), "s1": (4, 1, 64, 64, 64),
+             "s63": (4, 63, 64, 64, 64), "s65": (4, 65, 64, 64, 64),
+             "s4096": (1, 4096, 4, 64, 64),
+             "main_strong": (4, 1024, 64, 64, 64),
+             "s1_strong": (4, 1, 64, 64, 64)}
 SCAN_TOL = {"float32": 5e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:105-110
 STATE_TOL = 1e-3                                 # the float32 final state
 # float32 operations per state element per step, an FMA counted as 2.
 # rwkv6: k v, u (k v), S + u k v, r * (...) and its sum, w S, + k v;
-# mamba2: exp(dt A) S, (dt x) B, the sum, S C and its sum
+# mamba2 (stepwise): exp(dt A) S, (dt x) B, the sum, S C and its sum
 RWKV_OPS_PER_ELEMENT = 7
 SSD_OPS_PER_ELEMENT = 5
+SCAN_CUT = 77            # where a sequence is cut to carry the state
 
 RECORDS: list = []
 
@@ -212,38 +239,50 @@ def phase_device(torch) -> str:
 
 
 def phase_build() -> dict:
-    """Build the library; each attention kernel's registers and spills from
-    the ptxas report, and the tensor-core instructions in the bf16 flash
-    kernel's SASS (fails if cuobjdump is there and finds none)."""
+    """Build the library; each attention, forest and scan kernel's
+    registers and spills from the ptxas report (fails unless all 18 forest
+    and every rwkv6 instance are there), and the tensor-core instructions
+    in the bf16 flash and SSD kernels' SASS (fails if cuobjdump is there
+    and finds none in either)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import recurrence as rk
     t0 = time.perf_counter()
     lib = _build.load()
     seconds = time.perf_counter() - t0
     all_usage = _build.ptxas_usage(_build.ptxas_report().read_text())
-    usage = {m: u for m, u in all_usage.items()
-             if any(k in m for k in ATTN_KERNELS)}
-    forest_usage = {m: u for m, u in all_usage.items()
-                    if any(k in m for k in FOREST_KERNELS)}
+
+    def kernels_of(kinds):
+        return {m: u for m, u in all_usage.items()
+                if any(k in m for k in kinds)}
+    usage, forest_usage = kernels_of(ATTN_KERNELS), kernels_of(FOREST_KERNELS)
+    scan_usage = kernels_of(SCAN_KERNELS)
     check(len(forest_usage) == 18, f"18 forest kernel instances (D = 1..8 "
           f"and run-time D, two kernels), ptxas saw {len(forest_usage)}")
+    n_rwkv = 2 * len(rk.RWKV6_INSTANCE)
+    seen = sum("rwkv6_scan_kernel" in m for m in scan_usage)
+    check(seen == n_rwkv, f"{n_rwkv} rwkv6 instances (two dtypes), ptxas "
+          f"saw {seen}")
     tc = _build.tensor_core_instructions()
-    names = _build.demangle(set(usage) | set(forest_usage) | set(tc or {}))
+    names = _build.demangle(set(usage) | set(forest_usage) | set(scan_usage)
+                            | set(tc or {}))
     record = {"phase": "build", "seconds": seconds,
               "library": str(pathlib.Path(lib._name).relative_to(ROOT)),
               "attention_kernels": {names[m]: u for m, u in usage.items()},
               "forest_kernels": {names[m]: u
-                                 for m, u in forest_usage.items()}}
+                                 for m, u in forest_usage.items()},
+              "scan_kernels": {names[m]: u for m, u in scan_usage.items()}}
     if tc is None:
         record["tensor_core_instructions"] = "no cuobjdump in the toolkit"
     else:
-        flash_tc = {names[m]: n for m, n in tc.items()
-                    if "flash_attention_mma_kernel" in m}
         record["tensor_core_instructions"] = {
             names[m]: n for m, n in tc.items()
-            if any(k in m for k in ATTN_KERNELS)}
-        check(bool(flash_tc) and all(flash_tc.values()),
-              f"no tensor-core instruction in the bf16 flash kernel's SASS "
-              f"({flash_tc})")
+            if any(k in m for k in ATTN_KERNELS + SCAN_KERNELS)}
+        for kernel in ("flash_attention_mma_kernel",
+                       "mamba2_ssd_chunked_kernel"):
+            counts = {names[m]: n for m, n in tc.items() if kernel in m}
+            check(bool(counts) and all(counts.values()),
+                  f"no tensor-core instruction in {kernel}'s SASS "
+                  f"({counts})")
     emit(record)
     return record
 
@@ -867,22 +906,29 @@ def _bound_ms(nbytes, flop, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _kernel_device_ms(torch, fn, kind: str, n=DEVICE_TIMED) -> float | None:
+def _kernel_device_ms(torch, fn, kind: str, n=DEVICE_TIMED,
+                      tries=3) -> float | None:
     """The mean device time of the kernels whose name contains ``kind``
     over n calls of fn under torch.profiler (after one warm-up call), per
-    call; None if the profiler saw none."""
+    call.  Each call launches one such kernel; a trace that holds fewer
+    than n of them (late in a long process the profiler can drop device
+    events, which would understate the mean) is taken again, up to
+    ``tries`` times, and None is returned if none was whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kind in e.name]
-    return sum(us) / n / 1e3 if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kind in e.name]
+        if len(us) >= n:
+            return sum(us) / n / 1e3
+    return None
 
 
 def phase_attn_kernels(torch, dev):
@@ -1374,54 +1420,127 @@ def phase_serve(torch, dev):
 
 # ---------------------------------------------------------------- recurrent
 
-def _rwkv_inputs(torch, gen, B, S, H, Dh, dtype, dev):
+def _rwkv_inputs(torch, gen, B, S, H, Dh, dtype, dev, strong=False):
     """tests/test_kernels.py's distributions: r, k, v, state0 normal,
-    w = sigmoid(2 z), u = 0.3 z."""
+    w = sigmoid(2 z), u = 0.3 z; ``strong``: the model's own decay
+    w = exp(-exp(clip(3 z, -20, 10))) (models/layers.py), exact zeros
+    included."""
     r, k, v = (torch.randn((B, S, H, Dh), generator=gen, device=dev).to(dtype)
                for _ in range(3))
-    w = torch.sigmoid(2 * torch.randn((B, S, H, Dh), generator=gen,
-                                      device=dev)).to(dtype)
+    z = torch.randn((B, S, H, Dh), generator=gen, device=dev)
+    w = (torch.exp(-torch.exp((3 * z).clamp(-20.0, 10.0))) if strong
+         else torch.sigmoid(2 * z)).to(dtype)
     u = (0.3 * torch.randn((H, Dh), generator=gen, device=dev)).to(dtype)
     s0 = torch.randn((B, H, Dh, Dh), generator=gen, device=dev)
     return r, k, v, w, u, s0
 
 
-def _ssd_inputs(torch, gen, B, S, H, P, N, dtype, dev):
+def _ssd_inputs(torch, gen, B, S, H, P, N, dtype, dev, strong=False):
     """x, B, C, state0 normal, dt = softplus(z), A = -exp(0.5 z), as
-    tests/test_kernels.py."""
+    tests/test_kernels.py; ``strong``: A from -1 down to -50 across the
+    heads (dt A far below where exp underflows)."""
     x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn(
         (B, S, H), generator=gen, device=dev)).to(dtype)
     A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device=dev))
+    if strong:
+        A = -torch.linspace(1.0, 50.0, H, device=dev)
     Bm, Cm = (torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
               for _ in range(2))
     s0 = torch.randn((B, H, P, N), generator=gen, device=dev)
     return x, dt, A, Bm, Cm, s0
 
 
-def _rwkv_work(B, S, H, Dh, itemsize):
-    """(bytes, FLOP) of one WKV6 scan: r, k, v, w read once, y written once
-    and u read once in the model's dtype, the two float32 states;
-    RWKV_OPS_PER_ELEMENT per state element per step."""
+def _rwkv_work(B, S, H, Dh, dtype_name):
+    """(bytes, FLOP, rate) of one WKV6 scan: r, k, v, w read once, y
+    written once and u read once in the model's dtype, the two float32
+    states; RWKV_OPS_PER_ELEMENT per state element per step, at the float32
+    rate in both dtypes (the recurrence runs on the CUDA cores)."""
+    itemsize = 2 if dtype_name == "bfloat16" else 4
     nbytes = itemsize * (5 * B * S * H * Dh + H * Dh) + 8 * B * H * Dh * Dh
-    return nbytes, float(RWKV_OPS_PER_ELEMENT) * B * S * H * Dh * Dh
+    return (nbytes, float(RWKV_OPS_PER_ELEMENT) * B * S * H * Dh * Dh,
+            "float32")
 
 
-def _ssd_work(B, S, H, P, N, itemsize):
-    """(bytes, FLOP) of one SSD scan: x read and y written, dt, B and C read
-    in the model's dtype, A and the two states in float32;
-    SSD_OPS_PER_ELEMENT per state element per step."""
+def _ssd_chunked_flop(B, S, H, P, N):
+    """The chunked form's tensor-core products: per (b, h) and chunk of n
+    steps C B^T (2 n n N), M X (2 n n P), C S_in^T and (scaled x)^T B
+    (2 n P N each).  The kernel's bf16 pairs double some of them; that is
+    its precision, not the function's work."""
+    from repro_torch.kernels.recurrence import SSD_CHUNK
+    per_bh = sum(2 * n * n * N + 2 * n * n * P + 4 * n * P * N
+                 for n in (min(SSD_CHUNK, S - c0)
+                           for c0 in range(0, S, SSD_CHUNK)))
+    return float(B * H * per_bh)
+
+
+def _ssd_work(B, S, H, P, N, dtype_name):
+    """(bytes, FLOP, rate) of one SSD scan: x read and y written, dt, B and
+    C read in the model's dtype, A and the two states in float32.  bf16
+    runs the chunked form, so its operations are the tensor-core products
+    at the bf16 rate (_ssd_chunked_flop; the bytes bound it at the serving
+    shape); float32 runs the stepwise kernel, so its operations stay
+    SSD_OPS_PER_ELEMENT per state element per step at the float32 rate."""
+    itemsize = 2 if dtype_name == "bfloat16" else 4
     nbytes = itemsize * (2 * B * S * H * P + B * S * H + 2 * B * S * N) \
         + 4 * H + 8 * B * H * P * N
-    return nbytes, float(SSD_OPS_PER_ELEMENT) * B * S * H * P * N
+    if dtype_name == "bfloat16":
+        return nbytes, _ssd_chunked_flop(B, S, H, P, N), "bfloat16"
+    return (nbytes, float(SSD_OPS_PER_ELEMENT) * B * S * H * P * N,
+            "float32")
+
+
+def scan_timing(torch, dev) -> dict:
+    """Each scan kernel at its serving prefill shape ("main"), in float32
+    and bf16: the median CUDA-event time of a call (host wrapper inside)
+    and the kernel's own device time under torch.profiler.  Runs against
+    any src/ tree of the port, so two versions can be timed in turns in
+    one chip call (``--timing scan --src``)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for kernel, inputs, fn, shape in (
+                ("rwkv6_scan", _rwkv_inputs, ops.rwkv6_scan,
+                 RWKV_CASES["main"]),
+                ("mamba2_ssd", _ssd_inputs, ops.mamba2_ssd,
+                 SSD_CASES["main"])):
+            args = inputs(torch, gen, *shape, dtype, dev)
+
+            def call():
+                return fn(*args, impl="cuda")
+            out[f"{kernel}/{dname}"] = {
+                "ms": _time_ms(torch, call),
+                "device_ms": _kernel_device_ms(torch, call, kernel)}
+            del args
+    torch.cuda.synchronize()
+    return out
+
+
+def _carry(torch, fn, args, seq, cut):
+    """One call, then the sequence cut at ``cut`` into two calls with the
+    state carried; the positions in ``seq`` are the time-major inputs."""
+    y, st = fn(*args, impl="cuda")
+    first = [a[:, :cut].contiguous() if i in seq else a
+             for i, a in enumerate(args)]
+    y1, s1 = fn(*first, impl="cuda")
+    rest = [a[:, cut:].contiguous() if i in seq else a
+            for i, a in enumerate(args)]
+    rest[-1] = s1
+    y2, s2 = fn(*rest, impl="cuda")
+    return (y, st), (torch.cat([y1, y2], 1), s2)
 
 
 def phase_scan_kernels(torch, dev):
     """Each scan kernel against its plain version on the card, in float32
-    and bf16, at every case of RWKV_CASES / SSD_CASES; the state carried
-    across two calls equals one call; times of the kernel and its plain
-    version by CUDA events.  Bounds use the float32 rate in both dtypes:
-    the recurrences compute in float32 on the CUDA cores."""
+    and bf16, at every case of RWKV_CASES / SSD_CASES (the kernel's time by
+    CUDA events at each but "main", the plain version's at "main");
+    scan_timing's times at "main"; the state carried across two calls:
+    bitwise equal to one
+    call for rwkv6 in both dtypes and for mamba2 in float32, and for the
+    chunked bf16 mamba2 (whose chunk boundaries move with the cut) within
+    STATE_TOL and y within the bf16 tolerance."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = dict.fromkeys(SCAN_KERNELS, 0.0)
@@ -1435,7 +1554,8 @@ def phase_scan_kernels(torch, dev):
         tol = SCAN_TOL[dname]
         for kernel, cases, inputs, work, fn in plan:
             for case, shape in cases.items():
-                args = inputs(torch, gen, *shape, dtype, dev)
+                args = inputs(torch, gen, *shape, dtype, dev,
+                              strong=case.endswith("_strong"))
                 y, st = fn(*args, impl="cuda")
                 py, pst = fn(*args, impl="torch")
                 ey = float((y.float() - py.float()).abs().max())
@@ -1451,43 +1571,55 @@ def phase_scan_kernels(torch, dev):
                 max_err[kernel] = max(max_err[kernel], ey)
                 state_err[kernel] = max(state_err[kernel], es)
                 rec = {"max_abs_err": ey, "state_max_abs_err": es}
-                rec["ms"] = _time_ms(torch, lambda: fn(*args, impl="cuda"),
-                                     n=20, warmup=3)
-                rec["plain_ms"] = _time_ms(
-                    torch, lambda: fn(*args, impl="torch"), n=3, warmup=1)
+                if case != "main":      # "main": scan_timing below
+                    rec["ms"] = _time_ms(
+                        torch, lambda: fn(*args, impl="cuda"), n=20,
+                        warmup=3)
+                else:
+                    rec["plain_ms"] = _time_ms(
+                        torch, lambda: fn(*args, impl="torch"), n=3,
+                        warmup=1)
                 rec["library_ms"] = None
                 rec["bound_ms"], rec["bound_by"] = _bound_ms(
-                    *work(*shape, args[0].element_size()), "float32")
+                    *work(*shape, dname))
                 timing[kernel][f"{case}/{dname}"] = rec
                 del args, y, st, py, pst
-    # the sequence in two calls, the state carried, equals one call
-    cut = 77
-    r, k, v, w, u, s0 = _rwkv_inputs(torch, gen, 2, 301, 4, 64,
-                                     torch.float32, dev)
-    y, st = ops.rwkv6_scan(r, k, v, w, u, s0, impl="cuda")
-    y1, s1 = ops.rwkv6_scan(*(t[:, :cut].contiguous() for t in (r, k, v, w)),
-                            u, s0, impl="cuda")
-    y2, s2 = ops.rwkv6_scan(*(t[:, cut:].contiguous() for t in (r, k, v, w)),
-                            u, s1, impl="cuda")
-    check(torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st),
-          "rwkv6_scan: a carried state != one call")
-    x, dt, A, Bm, Cm, s0 = _ssd_inputs(torch, gen, 2, 301, 4, 32, 64,
-                                       torch.float32, dev)
-    y, st = ops.mamba2_ssd(x, dt, A, Bm, Cm, s0, impl="cuda")
-    y1, s1 = ops.mamba2_ssd(*(t[:, :cut].contiguous() for t in (x, dt)), A,
-                            *(t[:, :cut].contiguous() for t in (Bm, Cm)), s0,
-                            impl="cuda")
-    y2, s2 = ops.mamba2_ssd(*(t[:, cut:].contiguous() for t in (x, dt)), A,
-                            *(t[:, cut:].contiguous() for t in (Bm, Cm)), s1,
-                            impl="cuda")
-    check(torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st),
-          "mamba2_ssd: a carried state != one call")
+    for key, rec in scan_timing(torch, dev).items():
+        kernel, dname = key.split("/")
+        timing[kernel][f"main/{dname}"].update(rec)
+    # the sequence in two calls, the state carried
+    carry = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        one, two = _carry(torch, ops.rwkv6_scan, _rwkv_inputs(
+            torch, gen, 2, 301, 4, 64, dtype, dev), (0, 1, 2, 3), SCAN_CUT)
+        check(torch.equal(two[0], one[0]) and torch.equal(two[1], one[1]),
+              f"rwkv6_scan {dname}: a carried state != one call")
+        carry[f"rwkv6_scan/{dname}"] = "equal"
+        one, two = _carry(torch, ops.mamba2_ssd, _ssd_inputs(
+            torch, gen, 2, 301, 4, 32, 64, dtype, dev), (0, 1, 3, 4),
+            SCAN_CUT)
+        if dtype == torch.float32:
+            check(torch.equal(two[0], one[0]) and torch.equal(two[1], one[1]),
+                  "mamba2_ssd float32: a carried state != one call")
+            carry["mamba2_ssd/float32"] = "equal"
+        else:
+            ey = float((two[0].float() - one[0].float()).abs().max())
+            es = float((two[1] - one[1]).abs().max())
+            check(torch.allclose(two[0].float(), one[0].float(),
+                                 rtol=SCAN_TOL[dname], atol=SCAN_TOL[dname])
+                  and torch.allclose(two[1], one[1], rtol=STATE_TOL,
+                                     atol=STATE_TOL),
+                  f"mamba2_ssd bf16: a carried state is {es} (y {ey}) from "
+                  "one call")
+            carry["mamba2_ssd/bfloat16"] = {"y_max_abs_err": ey,
+                                            "state_max_abs_err": es}
     torch.cuda.synchronize()
     emit({"phase": "scan_kernels", "rwkv_cases": RWKV_CASES,
           "ssd_cases": SSD_CASES, "timing": timing, "max_abs_err": max_err,
-          "state_max_abs_err": state_err, "state_carry_equal": True,
+          "state_max_abs_err": state_err, "state_carry": carry,
           "ops_per_element": {"rwkv6_scan": RWKV_OPS_PER_ELEMENT,
-                              "mamba2_ssd": SSD_OPS_PER_ELEMENT}})
+                              "mamba2_ssd (float32)": SSD_OPS_PER_ELEMENT}})
     return timing, max_err, state_err
 
 
@@ -1550,17 +1682,36 @@ def _tensor_cores(build: dict, kernel: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every record to this file")
+    ap.add_argument("--timing", choices=("forest", "scan"),
+                    help="only time these kernels (forest_timing at "
+                    "TIMED_ROWS, or scan_timing) and print the timing as "
+                    "the last JSON line")
+    ap.add_argument("--src", type=pathlib.Path, default=SRC,
+                    help="with --timing: the src/ tree to import the port "
+                    "from, e.g. an older version from git archive")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+    src = args.src.resolve() if args.timing else SRC
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
               "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     dev = torch.device("cuda")
+    if args.timing:
+        smi = phase_device(torch)
+        if args.timing == "scan":
+            timed = scan_timing(torch, dev)
+        else:
+            _, rf, rows = _forest_fixtures(torch, dev)
+            timed = {B: forest_timing(torch, dev, rf, rows[:B])
+                     for B in TIMED_ROWS}
+        print(json.dumps({"timing": args.timing, "src": str(src),
+                          "nvidia_smi": smi, "result": timed}), flush=True)
+        return 0
     t_start = time.perf_counter()
     smi = phase_device(torch)
     build = phase_build()
@@ -1578,7 +1729,7 @@ def main(argv=None) -> int:
     attn_timing, attn_err = phase_attn_kernels(torch, dev)
     phase_serve_parity(torch, dev)
     serve_launches, serve_device_ms = phase_serve(torch, dev)
-    scan_timing, scan_err, scan_state_err = phase_scan_kernels(torch, dev)
+    scan_times, scan_err, scan_state_err = phase_scan_kernels(torch, dev)
     phase_recurrent_serve_parity(torch, dev)
     recurrent = {arch: phase_serve_recurrent(torch, dev, arch)
                  for arch in RECURRENT_ARCHS}
@@ -1628,7 +1779,7 @@ def main(argv=None) -> int:
     for k, launches, device_ms, cases in (
             ("rwkv6_scan", rwkv_launches, rwkv_ms, RWKV_CASES),
             ("mamba2_ssd", zamba_launches, zamba_ms, SSD_CASES)):
-        main_t = scan_timing[k]["main/bfloat16"]
+        main_t = scan_times[k]["main/bfloat16"]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": launches[k],
@@ -1636,7 +1787,13 @@ def main(argv=None) -> int:
             "state_max_abs_err": scan_state_err[k], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"], "library_ms": None,
-            "shape": cases["main"], "device_ms": device_ms[k]})
+            "shape": cases["main"], "device_ms": device_ms[k],
+            "device_ms_timed": main_t["device_ms"],
+            "float32": {key: scan_times[k]["main/float32"][key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            "ptxas": {n: u for n, u in build["scan_kernels"].items()
+                      if n.startswith(k)},
+            "tensor_core_instructions": _tensor_cores(build, k)})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if args.out:
         out = pathlib.Path(args.out)

@@ -157,6 +157,10 @@ def load() -> ctypes.CDLL:
             lib.rwkv6_scan_launch.restype = i
             lib.mamba2_ssd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
             lib.mamba2_ssd_launch.restype = i
+            lib.rwkv6_scan_geometry.argtypes = [i, i, p]
+            lib.rwkv6_scan_geometry.restype = i
+            lib.mamba2_ssd_geometry.argtypes = [i, i, i, p]
+            lib.mamba2_ssd_geometry.restype = i
             _LIB = lib
         return _LIB
 

@@ -258,3 +258,57 @@ def mamba2_step_ref(x, dt, A, Bvec, Cvec, state):
     state = decay[..., None, None] * state.float() + inject
     y = torch.einsum("bhpn,bn->bhp", state, Cvec.float())
     return y.to(x.dtype), state
+
+
+def bf16_pair(x):
+    """x (float32) as the sum of two bf16 values hi + lo, returned as one
+    float32 tensor: what a tensor-core product sees of a float32 operand
+    that enters it as a bf16 pair (hi = bf16(x), lo = bf16(x - hi)); the
+    sum is exact in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def mamba2_ssd_chunked_ref(x, dt, A, Bmat, Cmat, state0, *, chunk=64,
+                           split_bf16=True):
+    """The bf16 SSD kernel's algorithm (``csrc/recurrence.cu:
+    mamba2_ssd_chunked_kernel``) in torch, for the tests: the chunked
+    "state-space dual" form of ``mamba2_ssd_ref``, never used by a path on
+    the card.
+
+    Per chunk of ``chunk`` steps, with a_s = dt_s A_h and cs the inclusive
+    cumulative sum of a over the chunk,
+        G = C B^T,  M[t, s] = G[t, s] exp(cs_t - cs_s) dt_s  (s <= t, else 0)
+        y = M X + diag(exp(cs)) C S_in^T
+        S_out = exp(cs_last) S_in + (diag(exp(cs_last - cs_s) dt_s) X)^T B
+    Every decay is exp of a difference cs_t - cs_s <= 0, never a ratio of
+    cumulative products, so none overflows.  With ``split_bf16`` the
+    float32 operands of the products (M, the scaled X, S_in) are rounded to
+    the kernel's bf16 pairs (``bf16_pair``); x, B and C are taken as they
+    are (exact in bf16 when the inputs are bf16).  A ragged last chunk is
+    the kernel's zero-padded one: padding adds nothing and decays nothing.
+    Shapes and dtypes as ``mamba2_ssd_ref``."""
+    Bb, S, H, P = x.shape
+    rnd = bf16_pair if split_bf16 else (lambda t: t)
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, Bmat, Cmat))
+    Af = A.float()
+    state = state0.float()
+    y = torch.empty(Bb, S, H, P, dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        X, dtc = xf[:, c0:c0 + chunk], dtf[:, c0:c0 + chunk]
+        Bc, Cc = bf[:, c0:c0 + chunk], cf[:, c0:c0 + chunk]
+        n = X.shape[1]
+        cs = torch.cumsum(dtc * Af, dim=1)                      # (B, n, H)
+        causal = torch.ones(n, n, dtype=torch.bool,
+                            device=x.device).tril()[None, :, :, None]
+        seg = torch.where(causal, cs[:, :, None] - cs[:, None],
+                          -math.inf)                            # (B, t, s, H)
+        G = torch.einsum("btn,bsn->bts", Cc, Bc)
+        M = G[..., None] * torch.exp(seg) * dtc[:, None]
+        y[:, c0:c0 + n] = torch.einsum(
+            "btn,bhpn->bthp", Cc, rnd(state)) * torch.exp(cs)[..., None] \
+            + torch.einsum("btsh,bshp->bthp", rnd(M), X)
+        f = torch.exp(cs[:, -1:] - cs) * dtc                    # (B, n, H)
+        state = torch.exp(cs[:, -1])[..., None, None] * state + torch.einsum(
+            "bshp,bsn->bhpn", rnd(f[..., None] * X), Bc)
+    return y.to(x.dtype), state

@@ -390,6 +390,101 @@ def test_scan_kernels_carry_state(dev):
     assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st)
 
 
+# the edges: every Dh / (P, N), the shortest sequences, a ragged chunk on
+# either side of a chunk boundary (63, 65) and a long one (4096)
+EDGE_S = (1, 63, 65, 4096)
+SCAN_DIMS = (16, 32, 64)
+
+
+def _model_decay(gen, shape, dtype, dev):
+    """The model's w = exp(-exp(clip(dec, -20, 10))) with dec = 3 z: spans
+    from 1 to exact zeros (models/layers.py:_rwkv6_projections)."""
+    dec = 3 * torch.randn(shape, generator=gen, device=dev)
+    return torch.exp(-torch.exp(dec.clamp(-20.0, 10.0))).to(DTYPES[dtype])
+
+
+def _hold_scan(got, want, dtype):
+    (y, st), (want_y, want_st) = got, want
+    torch.cuda.synchronize()
+    assert y.dtype == want_y.dtype and st.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    torch.testing.assert_close(y.float(), want_y.float(), **_scan_tol(dtype))
+    torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", EDGE_S)
+@pytest.mark.parametrize("Dh", SCAN_DIMS)
+def test_rwkv6_scan_kernel_edges(dev, Dh, S, dtype):
+    """The model's own decay, exact zeros included."""
+    gen = torch.Generator(device=dev).manual_seed(10 + S)
+    r, k, v, _, u, s0 = _rwkv_inputs(gen, 1, S, 2, Dh, dtype, dev)
+    w = _model_decay(gen, (1, S, 2, Dh), dtype, dev)
+    if S > 1:
+        assert bool((w == 0).any()) and bool((w > 0.5).any())
+    args = (r, k, v, w, u, s0)
+    _hold_scan(ops.rwkv6_scan(*args), ops.rwkv6_scan(*args, impl="torch"),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", EDGE_S)
+@pytest.mark.parametrize("P,N", [(P, N) for P in SCAN_DIMS
+                                 for N in SCAN_DIMS])
+def test_mamba2_ssd_kernel_edges(dev, P, N, S, dtype):
+    """A from -1 to -50: dt A far below the point where exp underflows."""
+    gen = torch.Generator(device=dev).manual_seed(20 + S)
+    x, dt, _, Bm, Cm, s0 = _ssd_inputs(gen, 1, S, 2, P, N, dtype, dev)
+    A = torch.tensor([-1.0, -50.0], device=dev)
+    args = (x, dt, A, Bm, Cm, s0)
+    _hold_scan(ops.mamba2_ssd(*args), ops.mamba2_ssd(*args, impl="torch"),
+               dtype)
+
+
+def test_scan_kernels_carry_state_bf16(dev):
+    """bf16: RWKV6's steps do not depend on where a call starts (bitwise);
+    the chunked SSD's chunk boundaries move with the cut, so its carried
+    state agrees within 1e-3 and y within the bf16 tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    cut = 77
+    r, k, v, w, u, s0 = _rwkv_inputs(gen, 2, 301, 4, 64, "bf16", dev)
+    y, st = ops.rwkv6_scan(r, k, v, w, u, s0)
+    y1, s1 = ops.rwkv6_scan(*(t[:, :cut].contiguous() for t in (r, k, v, w)),
+                            u, s0)
+    y2, s2 = ops.rwkv6_scan(*(t[:, cut:].contiguous() for t in (r, k, v, w)),
+                            u, s1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st)
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, 2, 301, 4, 64, 64, "bf16", dev)
+    y, st = ops.mamba2_ssd(x, dt, A, Bm, Cm, s0)
+    y1, s1 = ops.mamba2_ssd(*(t[:, :cut].contiguous() for t in (x, dt)), A,
+                            Bm[:, :cut].contiguous(),
+                            Cm[:, :cut].contiguous(), s0)
+    y2, s2 = ops.mamba2_ssd(*(t[:, cut:].contiguous() for t in (x, dt)), A,
+                            Bm[:, cut:].contiguous(),
+                            Cm[:, cut:].contiguous(), s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1).float(), y.float(),
+                               **_scan_tol("bf16"))
+    torch.testing.assert_close(s2, st, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scan_geometry_matches_the_library(dev, dtype):
+    """kernels/recurrence.py's launch geometry is the one the built library
+    makes (blocks per (b, h), threads, dynamic shared bytes), for every
+    head_dim and (P, N)."""
+    from repro_torch.kernels import recurrence as rk
+    td = DTYPES[dtype]
+    for Dh in SCAN_DIMS:
+        want = rk.rwkv6_geometry(1, 1, Dh, td.itemsize)
+        assert rk.built_geometry("rwkv6_scan", (Dh,), td) == {
+            k: want[k] for k in ("blocks", "threads", "smem")}
+    for P in SCAN_DIMS:
+        for N in SCAN_DIMS:
+            want = rk.mamba2_geometry(1, 1, P, N, td)
+            assert rk.built_geometry("mamba2_ssd", (P, N), td) == {
+                k: want[k] for k in ("blocks", "threads", "smem")}
+
+
 def test_scan_kernels_reject_bad_input(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     r, k, v, w, u, s0 = _rwkv_inputs(gen, 1, 8, 2, 16, "f32", dev)

@@ -29,6 +29,7 @@ from repro.kernels import ref as jref
 from repro.kernels.mamba2_ssd import mamba2_ssd as pallas_ssd
 from repro.kernels.rwkv6_scan import rwkv6_scan as pallas_rwkv
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import recurrence as rk
 
 SCALE_TOL = 1e-5
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
@@ -193,3 +194,185 @@ def test_ops_dispatch_cpu_tensors_to_the_plain_versions():
     for got, want in zip(ops.mamba2_ssd(*targs), ref.mamba2_ssd_ref(*targs)):
         assert torch.equal(got, want)
     assert ops.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The bf16 SSD kernel's chunked algorithm, mirrored on the CPU
+# (ref.mamba2_ssd_chunked_ref): without rounding it equals the stepwise
+# recurrence to float32 order (1e-5 of the scale); with the kernel's bf16
+# pairs it stays inside the card checks' tolerances (y 5e-2, state 1e-3).
+# ---------------------------------------------------------------------------
+
+CHUNKED_S = (1, 63, 64, 65, 200)
+CHUNKED_TOL = {"y": dict(rtol=5e-2, atol=5e-2),
+               "state": dict(rtol=1e-3, atol=1e-3)}
+
+
+def _strong_ssd_np(seed, B, S, H, P, N):
+    """_ssd_np with A from -1 down to -50 across the heads, so that dt A
+    reaches below -80 (down to -85 at least, in the last head) and
+    exp(dt A) underflows to 0 in float32."""
+    x, dt, _, Bm, Cm, s0 = _ssd_np(seed, B, S, H, P, N)
+    A = -np.linspace(1.0, 50.0, H).astype(np.float32)
+    dt = (dt + 1.7).astype(np.float32)
+    return x, dt, A, Bm, Cm, s0
+
+
+def _chunked_args(case, S, strong, dtype):
+    B, _, H, P, N, _ = case
+    draw = _strong_ssd_np if strong else _ssd_np
+    x, dt, A, Bm, Cm, s0 = draw(20 + S, B, S, H, P, N)
+    if strong:
+        assert (dt * A[None, None]).min() < -80
+    pairs = [_pair(x, dtype), _pair(dt, dtype), _pair(A, "f32"),
+             _pair(Bm, dtype), _pair(Cm, dtype), _pair(s0, "f32")]
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+def _hold(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+@pytest.mark.parametrize("S", CHUNKED_S)
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_mamba2_chunked_mirror_matches_stepwise(case, S, strong):
+    """float32 inputs: unrounded, the chunked form is the stepwise one to
+    1e-5 of the scale; with the kernel's bf16 pairs, within the card
+    tolerances.  Held against the port's plain version and the JAX
+    oracle."""
+    jargs, targs = _chunked_args(case, S, strong, "f32")
+    exact = ref.mamba2_ssd_chunked_ref(*targs, split_bf16=False)
+    split = ref.mamba2_ssd_chunked_ref(*targs)
+    for want_y, want_st in (ref.mamba2_ssd_ref(*targs),
+                            jref.mamba2_ssd_ref(*jargs)):
+        _close(exact[0], want_y)
+        _close(exact[1], want_st)
+        _hold(split[0], want_y, CHUNKED_TOL["y"])
+        _hold(split[1], want_st, CHUNKED_TOL["state"])
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_mamba2_chunked_mirror_bf16_inputs(case, strong):
+    """bf16 inputs, as the kernel takes them: y (rounded to bf16) and the
+    float32 state within the card tolerances of both oracles."""
+    jargs, targs = _chunked_args(case, 200, strong, "bf16")
+    y, st = ref.mamba2_ssd_chunked_ref(*targs)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    for want_y, want_st in (ref.mamba2_ssd_ref(*targs),
+                            jref.mamba2_ssd_ref(*jargs)):
+        _hold(y, want_y, CHUNKED_TOL["y"])
+        _hold(st, want_st, CHUNKED_TOL["state"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba2_chunked_mirror_carries_state(dtype):
+    """A cut at 77 moves the chunk boundaries; the carried state still
+    agrees with one call within 1e-3, and y within the y tolerance."""
+    _, (x, dt, A, Bm, Cm, s0) = _chunked_args(SSD_CASES[1], 200, False,
+                                              dtype)
+    cut = 77
+    y, st = ref.mamba2_ssd_chunked_ref(x, dt, A, Bm, Cm, s0)
+    y1, s1 = ref.mamba2_ssd_chunked_ref(x[:, :cut], dt[:, :cut], A,
+                                        Bm[:, :cut], Cm[:, :cut], s0)
+    y2, s2 = ref.mamba2_ssd_chunked_ref(x[:, cut:], dt[:, cut:], A,
+                                        Bm[:, cut:], Cm[:, cut:], s1)
+    _hold(torch.cat([y1, y2], 1), y, CHUNKED_TOL["y"])
+    _hold(s2, st, CHUNKED_TOL["state"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mamba2_chunked_mirror_needs_the_bf16_pair(dtype, monkeypatch):
+    """The control for the pairs: with M, the scaled X and S_in rounded
+    once to bf16 instead, the carried state misses its 1e-3 tolerance
+    (by about 4x here), while the pairs keep it."""
+    jargs, targs = _chunked_args(SSD_CASES[1], 200, False, dtype)
+    want_st = jref.mamba2_ssd_ref(*jargs)[1]
+    _hold(ref.mamba2_ssd_chunked_ref(*targs)[1], want_st,
+          CHUNKED_TOL["state"])
+    monkeypatch.setattr(ref, "bf16_pair",
+                        lambda t: t.to(torch.bfloat16).float())
+    single = ref.mamba2_ssd_chunked_ref(*targs)[1]
+    with pytest.raises(AssertionError):
+        _hold(single, want_st, CHUNKED_TOL["state"])
+
+
+def test_bf16_pair_is_exact_to_sixteen_bits():
+    """hi + lo holds a float32 to about 2^-16 of itself, where one bf16
+    rounding is 2^-8 off."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(4096).astype(
+        np.float32) * 100)
+    pair = ref.bf16_pair(x)
+    assert ((pair - x).abs() <= x.abs() * 2.0 ** -16).all()
+    assert ((x.to(torch.bfloat16).float() - x).abs().max()
+            > (pair - x).abs().max() * 50)
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry of the CUDA scans (kernels/recurrence.py), on the CPU
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+SM_SMEM = 233_472          # shared memory per SM, 1 KB of it per block
+BLOCK_SMEM = 232_448       # dynamic shared memory one block may have
+SM_THREADS = 2048
+
+
+def _resident_per_sm(geo):
+    """Blocks each SM must hold for the whole grid to be resident at once,
+    and whether they fit its shared memory and threads."""
+    per_sm = -(-geo["blocks"] // H100_SMS)
+    fits = (per_sm * (geo["smem"] + 1024) <= SM_SMEM
+            and per_sm * geo["threads"] <= SM_THREADS)
+    return per_sm, fits
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+def test_rwkv6_geometry_fills_the_card(itemsize):
+    """At the serving prefill (B=4, H=32, Dh=64) the kernel runs in one
+    wave, two blocks of four warps on each SM, each thread a 4 x 4 tile of
+    the state (the first stepwise kernel: one block of 8 warps per SM, 16
+    state elements per thread in one column)."""
+    geo = rk.rwkv6_geometry(4, 32, 64, itemsize)
+    assert geo["instance"] == (2, 4, 4)
+    assert geo["blocks"] == 4 * 32 * 2 and geo["threads"] == 128
+    per_sm, fits = _resident_per_sm(geo)
+    assert per_sm == 2 and fits and geo["smem"] <= BLOCK_SMEM
+
+
+@pytest.mark.parametrize("Dh", rk.DIMS)
+def test_rwkv6_geometry_every_head_dim(Dh):
+    """Whole warps, a column group's threads within one warp (the
+    reduce-scatter is warp shuffles), and the kernel's own shared-memory
+    sum (csrc/recurrence.cu: the mbarriers' 128 bytes, two stages of r, k,
+    w, v boxes, the y columns in two tiles)."""
+    cs, re, ce = rk.RWKV6_INSTANCE[Dh]
+    for itemsize in (2, 4):
+        geo = rk.rwkv6_geometry(1, 2, Dh, itemsize)
+        assert geo["threads"] % 32 == 0 and Dh // re <= 32
+        assert geo["smem"] == (128 + 2 * 4 * 32 * Dh * itemsize
+                               + 2 * 32 * (Dh // cs) * 4) <= BLOCK_SMEM
+
+
+@pytest.mark.parametrize("P,N", [(p, n) for p in rk.DIMS for n in rk.DIMS])
+def test_mamba2_geometry(P, N):
+    """bf16 takes the chunked kernel, two blocks per SM; float32 the
+    stepwise one without dynamic shared memory."""
+    geo = rk.mamba2_geometry(4, 64, P, N, torch.bfloat16)
+    assert geo["kernel"] == "chunked" and geo["threads"] == 128
+    assert geo["blocks"] == 4 * 64
+    per_sm, fits = _resident_per_sm(geo)
+    assert per_sm == 2 and fits
+    f32 = rk.mamba2_geometry(4, 64, P, N, torch.float32)
+    assert f32 == {"kernel": "stepwise", "blocks": 256, "threads": 4 * P,
+                   "smem": 0}
+
+
+def test_scan_launchers_refuse_cpu_tensors():
+    _, targs = _rwkv_args((1, 8, 2, 16), "f32", seed=17)
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.rwkv6_scan(*targs)
+    _, targs = _ssd_args((1, 8, 2, 16, 16), "f32", seed=18)
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.mamba2_ssd(*targs)
