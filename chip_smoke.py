@@ -89,6 +89,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
            to its plain version (bf16 tolerances); prefill s, decode tok/s,
            ms per step, peak memory, each kernel's device time in a profiled
            prefill and the decode loop's idle share
+  cv       the paper's §4.1.3 table on the card: cross_validate of each of
+           the six models (k = 10, max_n = 12000) on the map dataset of
+           fit's 1000-node trace, on the card and on the CPU on the same
+           rows: the forest family's metrics equal, GLM's and N.N.'s within
+           0.005; time_ms per model, the GLM and N.N. fits' share of the
+           card's CV time and the device operations of one fit of each
+           (torch.profiler); forest_infer launched
+  sweep    the §5 fleet sweep at 1000 nodes (fifo and atlas-fifo x 1 seed
+           x baseline and kitchen_sink, map_heavy, per-node hazard) four
+           times: serial on the card, broker on the card with a model
+           registry, a 2-worker spawn process pool on the card, and serial
+           on the CPU in a spawned process alongside the card runs; spec,
+           cells, aggregates and rankings equal, broker dispatches,
+           kitchen_sink ATLAS predictions and both forest kernels' launches
+           above 0; each run's wall time
+  drift    one drift-aware ATLAS run (drift=True) in parity's 100-node
+           kitchen_sink cell, the predictor on the card and on the CPU from
+           the same trained start: equal metrics, refresher trio and
+           refresh events, with refreshes above 0
+  search   the scenario-search smoke configuration (8 evaluations x 1
+           seed, 20 nodes, the smoke workload, invariants on) through
+           run_search on the card and on the CPU: equal results apart from
+           provenance, no invariant violation
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.
@@ -205,6 +228,23 @@ STATE_TOL = 1e-3                                 # the float32 final state
 RWKV_OPS_PER_ELEMENT = 7
 SSD_OPS_PER_ELEMENT = 5
 SCAN_CUT = 77            # where a sequence is cut to carry the state
+
+# the ATLAS phases after serving: the paper's predictor study and §5 sweep
+CV_FOLDS, CV_MAX_N = 10, 12000
+CV_FOREST = ("Tree", "CTree", "R.F.", "Boost")   # bitwise card = CPU
+CV_DENSE_TOL = 0.005                             # GLM, N.N.: float sums
+# seeds cut from 2 to 1 for time: at 1000 nodes with per-node hazard the
+# kitchen_sink ATLAS cell makes about 333,000 decisions, some 70 s on the
+# card and 150 s on the CPU per run (PERF.md); the fleet size is not cut
+SWEEP = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
+             scenarios=("baseline", "kitchen_sink"), workloads=("map_heavy",),
+             fleet_sizes=(FLEET,), hazard="per-node")
+SWEEP_WORKERS = 2
+SWEEP_KEYS = ("spec", "cells", "aggregates", "rankings")
+# benchmarks/scenario_search.py --smoke
+SEARCH_SMOKE = dict(budget=8, seeds=1, fleet_size=20, scenario="baseline",
+                    workload="smoke", executor="serial",
+                    check_invariants=True, min_samples=40, max_train=2000)
 
 RECORDS: list = []
 
@@ -645,7 +685,7 @@ def phase_fit(torch, dev):
           "map_rows": int(data[0][0].shape[0]),
           "reduce_rows": int(data[1][0].shape[0]),
           "fit_s": secs, "params_equal": True})
-    return cfg, base, gpu
+    return cfg, base, gpu, data
 
 
 @contextlib.contextmanager
@@ -1671,6 +1711,222 @@ def phase_serve_recurrent(torch, dev, arch: str) -> tuple:
     return launches, _per_call_ms(record), call_err
 
 
+# ---------------------------------------------------------------- the
+# paper's predictor study and §5 evaluation
+
+def _forest_launches(torch) -> dict:
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    return {k: counts[k] for k in FOREST_KERNELS}
+
+
+def _device_ops(torch, fn) -> dict:
+    """The device operations (kernels and copies) and their busy time in
+    one call of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"device_ops": len(events), "wall_s": wall,
+            "device_busy_s": sum(e.time_range.elapsed_us()
+                                 for e in events) / 1e6}
+
+
+def phase_cv(torch, dev, smi, map_data) -> dict:
+    """cross_validate of each of the six models on fit's 1000-node map
+    dataset, on the card and on the CPU on the same rows (the same seed
+    draws the same subsample and folds).  Returns the forest launches of
+    the card's CV."""
+    from repro_torch.kernels import ops
+    from repro_torch.ml import models
+    from repro_torch.ml.cv import cross_validate
+    X, y = map_data
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = {name: cross_validate(name, X, y, k=CV_FOLDS, max_n=CV_MAX_N,
+                                 device=dev) for name in models.ALL_MODELS}
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = _forest_launches(torch)
+    check(launches["forest_infer"] > 0, "cv launched no forest_infer")
+    t0 = time.perf_counter()
+    cpu = {name: cross_validate(name, X, y, k=CV_FOLDS, max_n=CV_MAX_N,
+                                device="cpu") for name in models.ALL_MODELS}
+    cpu_s = time.perf_counter() - t0
+    gaps = {}
+    for name in models.ALL_MODELS:
+        gaps[name] = max(abs(card[name][m] - cpu[name][m]) for m in (
+            "accuracy", "precision", "recall", "error"))
+        check(card[name]["n"] == cpu[name]["n"], f"cv {name}: rows differ")
+        if name in CV_FOREST:
+            check(gaps[name] == 0.0, f"cv {name}: card metrics != CPU's")
+        else:
+            check(gaps[name] <= CV_DENSE_TOL, f"cv {name}: card metrics "
+                  f"{gaps[name]} from the CPU's (> {CV_DENSE_TOL})")
+    # one fit of each dense model on a fold's rows, profiled on the card
+    n = card["Glm"]["n"] * (CV_FOLDS - 1) // CV_FOLDS
+    Xs = (X[:n] - X[:n].mean(0)) / (X[:n].std(0) + 1e-6)
+    fits = {"Glm": _device_ops(
+                torch, lambda: models._glm_fit(Xs, y[:n], device=dev)),
+            "N.N.": _device_ops(
+                torch, lambda: models._nn_fit(Xs, y[:n], device=dev))}
+    dense_ms = card["Glm"]["time_ms"] + card["N.N."]["time_ms"]
+    emit({"phase": "cv", "nvidia_smi": smi, "rows": card["Glm"]["n"],
+          "features": int(X.shape[1]), "folds": CV_FOLDS,
+          "card": card, "cpu": cpu, "card_s": card_s, "cpu_s": cpu_s,
+          "max_metric_gap": gaps,
+          "dense_fits_share_of_card_cv": dense_ms / (card_s * 1e3),
+          "one_fit_on_card": {**fits, "rows": n},
+          "launches": launches})
+    return launches
+
+
+def _cpu_sweep(spec_kw: dict) -> tuple:
+    """The sweep's serial run on the CPU, in a process of its own so that
+    it overlaps the card runs: (result, wall seconds, log)."""
+    import torch
+    from repro_torch.cluster.fleet import SweepSpec, run_sweep
+    torch.set_num_threads(2)
+    log: list = []
+    t0 = time.perf_counter()
+    result = run_sweep(SweepSpec(**spec_kw), executor="serial", device="cpu",
+                       log=log.append)
+    return result, time.perf_counter() - t0, log
+
+
+def phase_sweep(torch, dev, smi) -> dict:
+    """The §5 sweep at 1000 nodes under four executors; equal results.
+    The CPU run goes in a spawned process alongside the three card runs.
+    Returns the forest launches of the in-process card runs (the process
+    pool's workers count their own, which the parent does not see)."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+    from repro_torch.cluster.fleet import SweepSpec, run_sweep
+    from repro_torch.kernels import ops
+    spec = SweepSpec(**SWEEP)
+    runs, walls, launches, logs = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as registry, \
+            concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_run = pool.submit(_cpu_sweep, SWEEP)
+        for name, kw in (
+                ("serial", dict(executor="serial", device=dev)),
+                ("broker", dict(executor="broker", registry=registry,
+                                device=dev)),
+                ("process", dict(executor="process", workers=SWEEP_WORKERS,
+                                 device=dev))):
+            logs[name] = []
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[name] = run_sweep(spec, log=logs[name].append, **kw)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            launches[name] = _forest_launches(torch)
+        t0 = time.perf_counter()
+        runs["serial_cpu"], walls["serial_cpu"], logs["serial_cpu"] = \
+            cpu_run.result()
+        walls["waited_for_serial_cpu"] = time.perf_counter() - t0
+    first = runs["serial"]
+    for name, r in runs.items():
+        for key in SWEEP_KEYS:
+            check(r[key] == first[key], f"sweep {name}: {key} differs from "
+                  "the serial card run's")
+    broker = runs["broker"]["perf"]["broker"]
+    check(broker["dispatches"] > 0, "sweep broker: no dispatch")
+    for c in first["cells"]:
+        if c["scenario"] == "kitchen_sink" and c["scheduler"] != "fifo":
+            check(c["stats"]["predictions"] > 0,
+                  f"sweep {c['cell_id']}: no prediction")
+    check(launches["serial"]["forest_infer"] > 0,
+          "sweep serial: no forest_infer launch")
+    check(launches["broker"]["forest_infer_grouped"] > 0,
+          "sweep broker: no forest_infer_grouped launch")
+    emit({"phase": "sweep", "nvidia_smi": smi, "spec": first["spec"],
+          "wall_s": walls, "launches": launches,
+          "perf_broker": broker, "equal": list(SWEEP_KEYS),
+          "rankings": first["rankings"],
+          "atlas_stats": {c["cell_id"]: c["stats"] for c in first["cells"]
+                          if c["scheduler"] != "fifo"},
+          "log": logs})
+    return {"sweep_serial": launches["serial"],
+            "sweep_broker": launches["broker"]}
+
+
+def phase_drift(torch, dev, smi) -> dict:
+    """A drift-aware ATLAS run in parity's 100-node kitchen_sink cell, the
+    predictor on the card and on the CPU from one CPU-trained start."""
+    from repro_torch.cluster.experiment import run_baseline, run_scheduler
+    from repro_torch.core.predictor import TaskPredictor
+    from repro_torch.kernels import ops
+    cfg = dataclasses.replace(
+        _slice_config(PARITY_FLEET, "cpu", KITCHEN_SINK), drift=True)
+    _, trace, _ = run_baseline("fifo", cfg)
+    trained = TaskPredictor(**_predictor_kw(cfg), device="cpu")
+    check(trained.fit(trace), "drift: predictor fitted")
+    metrics, events, secs = {}, {}, {}
+    for run, where in (("cuda", dev), ("cpu", "cpu")):
+        pred = TaskPredictor(**_predictor_kw(cfg), device=where)
+        pred.load_snapshot(trained.snapshot())
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics[run], _, sim = run_scheduler(
+            "atlas-fifo", dataclasses.replace(cfg, device=where), pred)
+        secs[run] = time.perf_counter() - t0
+        if run == "cuda":
+            launches = _forest_launches(torch)
+        events[run] = sim.scheduler.refresher.events
+        check(metrics[run]["invariant_violations"] == 0,
+              f"drift {run}: invariant violations")
+    check(metrics["cuda"] == metrics["cpu"], "drift: card run != CPU run")
+    check(events["cuda"] == events["cpu"], "drift: refresh events differ")
+    atlas = metrics["cuda"]["atlas"]
+    check(atlas["refreshes"] > 0, "drift: no refresh")
+    check(launches["forest_infer"] > 0, "drift: no forest_infer launch")
+    emit({"phase": "drift", "nvidia_smi": smi, "fleet_size": PARITY_FLEET,
+          "run_s": secs, "metrics_equal": True, "atlas": atlas,
+          "events": {e: sum(x["event"] == e for x in events["cuda"])
+                     for e in ("promote", "rollback", "skip")},
+          "launches": launches})
+    return launches
+
+
+def phase_search(torch, dev, smi) -> dict:
+    """The scenario-search smoke configuration on the card and on the
+    CPU: equal results apart from provenance."""
+    from repro_torch.cluster.search import SearchConfig, run_search
+    from repro_torch.kernels import ops
+    results, secs = {}, {}
+    for run, where in (("cuda", dev), ("cpu", "cpu")):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[run] = run_search(SearchConfig(**SEARCH_SMOKE), device=where,
+                                  log=lambda *a, **k: None)
+        secs[run] = time.perf_counter() - t0
+        if run == "cuda":
+            launches = _forest_launches(torch)
+        results[run].pop("provenance")
+    check(results["cuda"] == results["cpu"], "search: card != CPU result")
+    evals = results["cuda"]["evals"]
+    check(len(evals) == SEARCH_SMOKE["budget"], "search: evaluations missing")
+    check(sum(e["violations"] for e in evals) == 0,
+          "search: invariant violations")
+    check(sum(e["checks"] for e in evals) > 0, "search: no invariant check")
+    check(launches["forest_infer"] > 0, "search: no forest_infer launch")
+    emit({"phase": "search", "nvidia_smi": smi, "run_s": secs,
+          "regrets": [e["regret"] for e in evals],
+          "best": {k: results["cuda"]["best"][k]
+                   for k in ("i", "origin", "regret")},
+          "launches": launches})
+    return launches
+
+
 def _tensor_cores(build: dict, kernel: str):
     """The build phase's SASS counts of ``kernel``'s instantiations."""
     tc = build["tensor_core_instructions"]
@@ -1716,7 +1972,7 @@ def main(argv=None) -> int:
     smi = phase_device(torch)
     build = phase_build()
     timing = phase_kernels(torch, dev)
-    cfg, base, trained = phase_fit(torch, dev)
+    cfg, base, trained, fit_data = phase_fit(torch, dev)
     launches, flush_rows = phase_slice(torch, dev, cfg, base, trained)
     for k, rec in phase_flush_kernels(torch, dev, flush_rows).items():
         timing[k][flush_rows] = rec
@@ -1735,12 +1991,18 @@ def main(argv=None) -> int:
                  for arch in RECURRENT_ARCHS}
     rwkv_launches, rwkv_ms, _ = recurrent["rwkv6-1.6b"]
     zamba_launches, zamba_ms, _ = recurrent["zamba2-1.2b"]
+    by_path = {"slice": launches}
+    by_path["cv"] = phase_cv(torch, dev, smi, fit_data[0])
+    by_path.update(phase_sweep(torch, dev, smi))
+    by_path["drift"] = phase_drift(torch, dev, smi)
+    by_path["search"] = phase_search(torch, dev, smi)
     kernels = []
     for k in FOREST_KERNELS:
         main_t = timing[k][main_rows[k]]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": launches[k],
+            "launches_by_path": {path: n[k] for path, n in by_path.items()},
             "max_abs_err": max_err[k], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"], "library_ms": None,

@@ -6,12 +6,15 @@ The JAX package ``repro`` stays the reference; this package mirrors its module
 tree and public names and imports nothing from it.  Ported so far:
 
   cluster/     discrete-event fleet simulator, chaos, workload, telemetry,
-               invariants, and the §5 experiment driver.
+               invariants, scenarios, the §5 experiment driver, the fleet
+               sweep engine and the adversarial scenario search.
   sched/       FIFO / Fair / Capacity baselines.
   core/        ATLAS scheduler (Algorithm 1), adaptive heartbeat, predictor.
-  ml/          oblivious forests (fit + inference) and the forest-family
-               models (Tree, CTree, R.F., Boost).
-  online/      the batched prediction broker.
+  ml/          oblivious forests (fit + inference), the paper's six
+               models (GLM, Tree, CTree, R.F., Boost, N.N.) and the 10-fold
+               CV harness.
+  online/      the batched prediction broker, the model registry and the
+               drift-aware refresher.
   configs/     the model zoo's ten arch configs and shapes.
   parallel/    parameter definitions with logical axes; seeded init.
   models/      the dense, ssm (RWKV6) and hybrid (Mamba2 + shared
@@ -20,12 +23,16 @@ tree and public names and imports nothing from it.  Ported so far:
   launch/      serve.py: batched prefill, then greedy decode.
   kernels/     CUDA forest, attention and scan kernels (csrc/), their plain
                torch versions (ref.py) and the device dispatch (ops.py).
-  convert.py   carries trained predictors and LM parameters across from
-               the JAX package.
+  convert.py   carries trained predictors, GLM / N.N. weights and LM
+               parameters across from the JAX package.
 
 Device rule: every entry point that touches tensors takes ``device``;
 ``None`` means CUDA and raises when no GPU is present (see
 ``kernels.ops.resolve_device``).  CPU runs pass ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+# Stamped into SWEEP.json / SEARCH.json under provenance.pr (the JAX
+# package's key), so an artifact says which package and version produced it.
+PR_TAG = f"repro_torch-{__version__}"

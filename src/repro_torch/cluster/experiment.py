@@ -8,9 +8,9 @@
   4. compare metrics (Figures 4-12, Table 4).
 
 The predictor fits and scores on ``ExperimentConfig.device`` (CUDA unless
-told otherwise).  Live telemetry (``obs_path`` / ``obs_live_addr``) and the
-drift-aware refresh (``drift=True``) need modules that are not ported yet
-(``obs/``, ``online/drift.py``) and raise ``NotImplementedError``.
+told otherwise).  Live telemetry (``obs_path`` / ``obs_live_addr``) needs
+the ``obs/`` package, which is not ported yet, and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ class ExperimentConfig:
     min_samples: int = 150
     # training-set cap: rows per fit, subsampled from the trace
     max_train: int = 20000
-    # drift-aware refresh (online/drift, not yet ported: raises)
+    # drift-aware refresh (repro_torch.online.drift) instead of the fixed clock
     drift: bool = False
+    drift_check_every: float = 60.0
     # fleet-size scale axis: 0 = the paper's 13-slave EMR fleet, N = an
     # N-node fleet cycling the same machine mix (simulator.make_fleet)
     fleet_size: int = 0
@@ -67,10 +68,6 @@ def _check_ported(cfg: ExperimentConfig):
         raise NotImplementedError(
             "live telemetry (obs_path / obs_live_addr) needs the obs/ "
             "package, which repro_torch has not ported yet")
-    if cfg.drift:
-        raise NotImplementedError(
-            "drift=True needs online/drift.py (OnlineRefresher), which "
-            "repro_torch has not ported yet")
 
 
 def _new_sim(scheduler, cfg: ExperimentConfig, trace) -> Simulator:
@@ -96,6 +93,11 @@ def run_baseline(name: str, cfg: ExperimentConfig, *, with_trace=True):
 def run_atlas(name: str, cfg: ExperimentConfig,
               predictor: TaskPredictor | None = None):
     trace = TelemetryTrace()
+    refresher = None
+    if cfg.drift:
+        from repro_torch.online.drift import OnlineRefresher
+        refresher = OnlineRefresher(retrain_every=cfg.retrain_every,
+                                    check_every=cfg.drift_check_every)
     sched = ATLASScheduler(
         BASELINES[name](),
         predictor=predictor or TaskPredictor(algo=cfg.algo,
@@ -103,7 +105,7 @@ def run_atlas(name: str, cfg: ExperimentConfig,
                                              max_train=cfg.max_train,
                                              device=cfg.device),
         threshold=cfg.threshold, n_speculative=cfg.n_speculative,
-        retrain_every=cfg.retrain_every)
+        retrain_every=cfg.retrain_every, refresher=refresher)
     sim = _new_sim(sched, cfg, trace)
     metrics = sim.run()
     metrics["atlas"] = sched.stats().to_dict()

@@ -3,9 +3,11 @@
 The JAX package's predictor serialises its trained state as a plain dict
 (``TaskPredictor.snapshot()`` in ``repro/core/predictor.py``) whose models are
 forest parameter objects with numpy ``feat_idx`` / ``thresholds`` /
-``leaves`` attributes.  Its model zoo's parameters are nested dicts of
-arrays.  These functions read such objects by those attributes and keys
-alone, so this module imports nothing from the JAX package."""
+``leaves`` attributes.  Its fitted GLM keeps ``mu`` / ``sd`` / ``wb`` and its
+MLP ``mu`` / ``sd`` / ``params`` (w1, b1, w2, b2).  Its model zoo's
+parameters are nested dicts of arrays.  These functions read such objects
+by those attributes and keys alone, so this module imports nothing from the
+JAX package."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core.predictor import TaskPredictor
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.ml.forest import ForestParams
+from repro_torch.ml.models import GLM, NeuralNet
 from repro_torch.parallel.axes import tree_map
 
 
@@ -28,6 +31,34 @@ def forest_params_from_arrays(feat_idx, thresholds, leaves) -> ForestParams:
         raise ValueError(f"inconsistent forest shapes: feat_idx {fi.shape}, "
                          f"thresholds {th.shape}, leaves {lv.shape}")
     return ForestParams(feat_idx=fi, thresholds=th, leaves=lv)
+
+
+def glm_from_arrays(mu, sd, wb, *, device=None) -> GLM:
+    """A fitted port ``GLM`` from the standardisation (F,), (F,) and the
+    weights-and-bias (F + 1,) arrays: it scores bitwise like the model
+    they came from (``predict_proba`` is numpy on the host in both)."""
+    model = GLM(device=device)
+    model.mu, model.sd = np.array(mu, np.float32), np.array(sd, np.float32)
+    model.wb = np.array(wb, np.float32)
+    if model.wb.shape != (model.mu.shape[0] + 1,):
+        raise ValueError(f"GLM weights {model.wb.shape} do not fit "
+                         f"{model.mu.shape[0]} features")
+    return model
+
+
+def neural_net_from_arrays(mu, sd, params, *, device=None) -> NeuralNet:
+    """A fitted port ``NeuralNet`` from the standardisation arrays and the
+    MLP's parameters (a mapping with w1 (F, H), b1 (H,), w2 (H, 1), b2 (1,))."""
+    model = NeuralNet(device=device)
+    model.mu, model.sd = np.array(mu, np.float32), np.array(sd, np.float32)
+    model.params = {k: np.array(params[k], np.float32)
+                    for k in ("w1", "b1", "w2", "b2")}
+    F, H = model.params["w1"].shape
+    if F != model.mu.shape[0] or model.params["w2"].shape != (H, 1):
+        raise ValueError(f"MLP shapes do not fit {model.mu.shape[0]} "
+                         f"features: w1 {(F, H)}, "
+                         f"w2 {model.params['w2'].shape}")
+    return model
 
 
 def predictor_from_snapshot(snap: dict, *, device=None) -> TaskPredictor:

@@ -28,7 +28,9 @@ from repro_torch.sched.base import Scheduler, SchedulerStats
 @dataclasses.dataclass
 class AtlasStats(SchedulerStats):
     """ATLAS's ``stats()`` schema: the shared counters plus Algorithm-1
-    accounting."""
+    accounting.  The refresher trio is ``None`` (omitted from ``to_dict``)
+    when no drift-aware refresh loop is attached, so cell stats stay
+    byte-identical whichever lifecycle ran the model."""
     predictions: int = 0
     predicted_fail: int = 0
     relocations: int = 0
@@ -37,6 +39,9 @@ class AtlasStats(SchedulerStats):
     dead_probes: int = 0
     hb_adjustments: int = 0
     model_fits: int = 0
+    refreshes: int | None = None
+    promotions: int | None = None
+    rollbacks: int | None = None
 
 
 class ATLASScheduler(Scheduler):
@@ -44,7 +49,7 @@ class ATLASScheduler(Scheduler):
 
     def __init__(self, base: Scheduler, *, predictor: TaskPredictor | None = None,
                  threshold: float = 0.5, n_speculative: int = 2,
-                 retrain_every: float = 600.0,
+                 retrain_every: float = 600.0, refresher=None,
                  heartbeat: HeartbeatController | None = None,
                  max_penalty_box: int = 512, penalty_timeout: float = 150.0):
         super().__init__()
@@ -55,6 +60,11 @@ class ATLASScheduler(Scheduler):
         self.n_speculative = n_speculative
         self.retrain_every = retrain_every
         self.hb = heartbeat or HeartbeatController()
+        # optional drift-aware refresh loop (repro_torch.online.drift):
+        # retrains on feature/score drift instead of only the fixed §5.1 clock
+        self.refresher = refresher
+        if refresher is not None:
+            refresher.bind_predictor(self.predictor)
         self.penalty_timeout = penalty_timeout
         self.penalty_box: deque = deque(maxlen=max_penalty_box)
         # counters (reported in EXPERIMENTS.md)
@@ -70,7 +80,9 @@ class ATLASScheduler(Scheduler):
         self.sim = sim
         self.base.bind(sim)
         self.base.launch = self._atlas_launch        # intercept Algorithm-1 gate
-        if self.retrain_every > 0:
+        if self.refresher is not None:
+            sim._push(self.refresher.check_every, EV_RETRAIN, None)
+        elif self.retrain_every > 0:
             sim._push(self.retrain_every, EV_RETRAIN, None)
 
     # ------------------------------------------------------------------ hooks
@@ -88,6 +100,14 @@ class ATLASScheduler(Scheduler):
         self.base.on_heartbeat(node)
 
     def on_retrain(self):
+        if self.refresher is not None:
+            # drift-aware path: check often, retrain when the monitor (or the
+            # staleness clock it keeps) says the environment moved
+            if self.sim.trace is not None:
+                self.refresher.step(self.sim)
+            self.sim._push(self.sim.now + self.refresher.check_every,
+                           EV_RETRAIN, None)
+            return
         if self.sim.trace is not None:
             self.predictor.fit(self.sim.trace)
         self.sim._push(self.sim.now + self.retrain_every, EV_RETRAIN, None)
@@ -223,4 +243,8 @@ class ATLASScheduler(Scheduler):
             model_fits=self.predictor.fits,
             # NOTE: dispatch counters live on the predictor/broker, not here —
             # cell stats must be identical whichever batching executor ran them
+            **({"refreshes": self.refresher.refreshes,
+                "promotions": self.refresher.promotions,
+                "rollbacks": self.refresher.rollbacks}
+               if self.refresher is not None else {}),
         )

@@ -74,6 +74,14 @@ class TaskPredictor:
             self._models_changed()
         return trained
 
+    def adopt(self, other: "TaskPredictor"):
+        """Take over another predictor's trained models (drift-refresh promote:
+        the candidate was fitted off to the side, evaluated, and won)."""
+        self.map_model = other.map_model
+        self.reduce_model = other.reduce_model
+        self.fits = other.fits
+        self._models_changed()
+
     def _models_changed(self):
         """Hook: the broker invalidates its memo when the models swap."""
 

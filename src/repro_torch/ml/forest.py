@@ -146,8 +146,13 @@ def fit_oblivious_forest(X: np.ndarray, y: np.ndarray, *, n_trees: int = 24,
                          depth: int = 5, n_bins: int = 8, bootstrap: bool = True,
                          criterion: str = "var", seed: int = 0,
                          sample_weight: np.ndarray | None = None,
+                         fold_masks: np.ndarray | None = None,
                          device=None) -> ForestParams:
-    """Fit ``n_trees`` oblivious trees of given depth on ``device``."""
+    """Fit ``n_trees`` oblivious trees of given depth on ``device``.
+
+    fold_masks: optional (K, N) {0,1} — trains ``n_trees`` trees *per fold*
+    in one batch (weights zeroed on the fold's test samples); returns K*T
+    trees ordered fold-major, which ``tree_slice`` picks apart."""
     dev = resolve_device(device)
     N, F = X.shape
     thr = make_bins(X, n_bins)                                 # (F, Q)
@@ -155,11 +160,13 @@ def fit_oblivious_forest(X: np.ndarray, y: np.ndarray, *, n_trees: int = 24,
     bits_np = (X[:, :, None] > thr[None]).astype(np.float32).reshape(N, F * Q)
 
     rng = np.random.RandomState(seed)
-    T = n_trees
+    T = n_trees * (1 if fold_masks is None else fold_masks.shape[0])
     if bootstrap:
         w_np = rng.poisson(1.0, size=(T, N)).astype(np.float32)
     else:
         w_np = np.ones((T, N), np.float32)
+    if fold_masks is not None:
+        w_np = w_np * np.repeat(fold_masks, n_trees, axis=0)   # fold-major
     if sample_weight is not None:
         w_np = w_np * sample_weight[None, :]
 
@@ -221,9 +228,20 @@ def _leaf_votes_np(fi, th, lv, x: np.ndarray) -> np.ndarray:
     return np.take(lv.astype(np.float32).reshape(-1), flat_idx)
 
 
-def forest_predict_np(params: ForestParams, X: np.ndarray) -> np.ndarray:
+def _sliced(params: ForestParams, tree_slice: slice | None) -> ForestParams:
+    """The trees ``tree_slice`` selects (one fold of a fold-major fit)."""
+    if tree_slice is None:
+        return params
+    return ForestParams(feat_idx=params.feat_idx[tree_slice],
+                        thresholds=params.thresholds[tree_slice],
+                        leaves=params.leaves[tree_slice])
+
+
+def forest_predict_np(params: ForestParams, X: np.ndarray,
+                      tree_slice: slice | None = None) -> np.ndarray:
     """Pure-numpy mirror of ``kernels.ref.forest_infer_ref``: the bitwise
     oracle of every scoring path of the port."""
+    params = _sliced(params, tree_slice)
     return _mean_over_trees(_leaf_votes_np(
         params.feat_idx, params.thresholds, params.leaves,
         np.asarray(X, np.float32)))
@@ -547,7 +565,8 @@ def forest_predict_grouped(groups, *, impl: str | None = None,
 
 
 def forest_predict(params: ForestParams, X: np.ndarray, *,
-                   impl: str | None = None, device=None) -> np.ndarray:
+                   impl: str | None = None, tree_slice: slice | None = None,
+                   device=None) -> np.ndarray:
     """Mean leaf value over trees — a probability for {0,1} targets.
 
     impl=None scores on ``device`` at every batch size: the CUDA kernel on
@@ -555,9 +574,11 @@ def forest_predict(params: ForestParams, X: np.ndarray, *,
     mirror; "cuda"/"torch" force a path.  All are bitwise equal.  On the
     card the rows go through this thread's staging buffers (one copy each
     way, one synchronisation) unless ``impl="torch"``; the result is a new
-    array either way."""
+    array either way.  ``tree_slice`` scores only those trees (a sliced
+    model is a new object, so its device copy is not cached)."""
     if impl == "numpy":
-        return forest_predict_np(params, X)
+        return forest_predict_np(params, X, tree_slice)
+    params = _sliced(params, tree_slice)
     dev = resolve_device(device)
     _check_width(params, X.shape[1])
     model = params.on(dev)

@@ -263,10 +263,12 @@ class PredictionBroker:
     def stats(self) -> dict:
         # deterministic counters only: whether a given flush fired via the
         # solo bypass or a done()-triggered round depends on thread
-        # interleaving, so n_solo_flushes is read as an attribute instead
+        # interleaving, so n_solo_flushes is read as an attribute instead.
+        # "policy" names the one flush policy the port has, in the JAX
+        # package's schema, so a sweep's perf.broker block matches its bytes
         return {"flushes": self.n_flushes, "dispatches": self.n_dispatches,
                 "rows": self.n_rows, "requests": self.n_requests,
-                "max_flush_rows": self.max_flush_rows}
+                "max_flush_rows": self.max_flush_rows, "policy": "barrier"}
 
 
 class BrokerPredictor(TaskPredictor):

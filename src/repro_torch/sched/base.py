@@ -28,8 +28,10 @@ class SchedulerStats:
     speculative_copies: int = 0
 
     def to_dict(self) -> dict:
-        """JSON-ready form, in field order."""
-        return dataclasses.asdict(self)
+        """JSON-ready form, in field order, with ``None``-valued optional
+        extension fields omitted."""
+        return {k: v for k, v in dataclasses.asdict(self).items()
+                if v is not None}
 
 
 class Scheduler:

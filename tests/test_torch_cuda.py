@@ -507,3 +507,62 @@ def test_scan_kernels_reject_bad_input(dev):
         ops.mamba2_ssd(x, dt, A, z, z, torch.zeros((1, 2, 16, 24), device=dev))
     with pytest.raises(ValueError):
         ops.mamba2_ssd(x, dt, A, Bm, Cm[:, :4].contiguous(), s0)
+
+
+# ---------------------------------------------------------------- the
+# paper's predictor study and §5 sweep on the card
+
+def _failure_pattern(n, seed=0):
+    rs = np.random.RandomState(seed)
+    X = rs.randn(n, 8).astype(np.float32)
+    logit = 1.2 * X[:, 0] - 0.8 * X[:, 1] + 1.5 * (X[:, 2] > 0.5) - 0.6
+    y = (rs.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return X, y
+
+
+def test_dense_models_fit_on_the_card_like_on_the_cpu(dev):
+    """GLM and N.N. fitted on the card (TF32 off) against the same fits on
+    the CPU, at the tolerances the CPU fits keep to the JAX package."""
+    from repro_torch.ml import models
+    X, y = _failure_pattern(3000)
+    card, cpu = models.GLM(device=dev).fit(X, y), \
+        models.GLM(device="cpu").fit(X, y)
+    np.testing.assert_allclose(card.wb, cpu.wb, rtol=0, atol=1e-5)
+    card, cpu = models.NeuralNet(device=dev).fit(X, y), \
+        models.NeuralNet(device="cpu").fit(X, y)
+    for k in cpu.params:
+        np.testing.assert_allclose(card.params[k], cpu.params[k], rtol=0,
+                                   atol=1e-3, err_msg=k)
+    np.testing.assert_allclose(card.predict_proba(X), cpu.predict_proba(X),
+                               rtol=0, atol=1e-4)
+
+
+def test_small_sweep_on_the_card_serial_and_broker(dev, tmp_path):
+    """The CPU tests' kitchen_sink smoke sweep on the card: serial and
+    broker (with a model registry) equal the CPU's serial sweep, and the
+    card runs launch both forest kernels."""
+    import json
+    from repro_torch.cluster import fleet
+    spec = fleet.SweepSpec(schedulers=("fifo", "atlas-fifo"), seeds=2,
+                           scenarios=("kitchen_sink",), workloads=("smoke",),
+                           fleet_sizes=(100,), min_samples=40)
+
+    def body(result):
+        out = json.loads(fleet.sweep_json(result))
+        out.pop("provenance")
+        out.pop("perf", None)
+        return out
+
+    want = body(fleet.run_sweep(spec, executor="serial", device="cpu",
+                                log=lambda *a: None))
+    launches = {}
+    for executor, kw in (("serial", {}),
+                         ("broker", {"registry": str(tmp_path / "reg")})):
+        ops.reset_launch_counts()
+        got = fleet.run_sweep(spec, executor=executor, device=dev,
+                              log=lambda *a: None, **kw)
+        launches[executor] = ops.launch_counts()
+        assert body(got) == want, executor
+    assert got["perf"]["broker"]["demand_calls"] > 0
+    assert launches["serial"]["forest_infer"] > 0
+    assert launches["broker"]["forest_infer_grouped"] > 0

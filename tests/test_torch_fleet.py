@@ -1,0 +1,230 @@
+"""The port's scenario library and fleet sweep engine
+(repro_torch.cluster.scenarios, repro_torch.cluster.fleet) against the JAX
+package on the CPU.
+
+The scenario library is pure Python copied from the reference: its draws,
+moves and encodings are held equal.  A sweep's ``SWEEP.json`` is held equal
+to the reference's apart from ``provenance`` (each package stamps its own
+tag), under the serial and broker executors, ``perf.broker`` included.
+The kitchen_sink smoke matrix at 100 nodes with ``min_samples=40`` is used
+because its ATLAS cells train and ask for predictions (the reference's
+broker run makes demand calls), so the parity is not vacuous."""
+
+import dataclasses
+import json
+import random
+
+import pytest
+
+from repro.cluster import fleet as jfleet
+from repro.cluster import scenarios as jsc
+from repro_torch.cluster import fleet as tfleet
+from repro_torch.cluster import scenarios as tsc
+
+CPU = "cpu"
+SMALL = dict(schedulers=("fifo", "atlas-fifo"), seeds=2,
+             scenarios=("kitchen_sink",), workloads=("smoke",),
+             fleet_sizes=(100,), min_samples=40)
+
+
+def _quiet(*a, **k):
+    pass
+
+
+def _without_provenance(result) -> dict:
+    out = json.loads(tfleet.sweep_json(result))
+    assert out.pop("provenance")["pr"]
+    return out
+
+
+# ---------------------------------------------------------------- scenarios
+
+def test_scenario_library_matches_reference():
+    assert list(tsc.SCENARIOS) == list(jsc.SCENARIOS)
+    for name in jsc.SCENARIOS:
+        assert tsc.SCENARIOS[name].to_dict() == jsc.SCENARIOS[name].to_dict()
+    assert list(tsc.WORKLOAD_SHAPES) == list(jsc.WORKLOAD_SHAPES)
+    for name, wl in jsc.WORKLOAD_SHAPES.items():
+        assert dataclasses.asdict(tsc.WORKLOAD_SHAPES[name]) \
+            == dataclasses.asdict(wl)
+    for bounds in ("CHAOS_BOUNDS", "WORKLOAD_BOUNDS"):
+        assert {k: dataclasses.asdict(b)
+                for k, b in getattr(tsc, bounds).items()} \
+            == {k: dataclasses.asdict(b)
+                for k, b in getattr(jsc, bounds).items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 123])
+def test_scenario_draws_and_moves_match_reference(seed):
+    j = jsc.ScenarioSpec.sample(random.Random(seed), name="s")
+    t = tsc.ScenarioSpec.sample(random.Random(seed), name="s")
+    assert t.to_dict() == j.to_dict()
+    for scale in (0.1, 0.25, 1.0):
+        jm = j.perturb(random.Random(seed + 1), scale)
+        tm = t.perturb(random.Random(seed + 1), scale)
+        assert tm.to_dict() == jm.to_dict()
+    for name in ("baseline", "kitchen_sink", "bursty_tt"):
+        jp, tp = jsc.make_spec(name, "map_heavy"), tsc.make_spec(name,
+                                                                 "map_heavy")
+        assert tp.to_dict() == jp.to_dict()
+        assert dataclasses.asdict(tp.chaos_for_seed(seed)) \
+            == dataclasses.asdict(jp.chaos_for_seed(seed))
+        assert dataclasses.asdict(tp.workload_for_seed(seed)) \
+            == dataclasses.asdict(jp.workload_for_seed(seed))
+        again = tsc.ScenarioSpec.from_dict(jp.to_dict())
+        assert again == tp
+
+
+def test_scenario_scope_registers_for_the_sweep():
+    point = tsc.ScenarioSpec.sample(random.Random(3), name="p")
+    with tsc.scenario_scope(point, scenario_name="tmp_sc",
+                            workload_name="tmp_wl"):
+        assert tsc.make_spec("tmp_sc", "tmp_wl").to_dict()["chaos"] \
+            == point.to_dict()["chaos"]
+    assert "tmp_sc" not in tsc.SCENARIOS
+
+
+# ---------------------------------------------------------------- matrix
+
+SPECS = [
+    dict(schedulers=("fifo", "fair", "atlas-fifo"), seeds=3,
+         scenarios=("baseline", "dn_loss"), workloads=("smoke", "default")),
+    dict(schedulers=("atlas-capacity",), seeds=(4, 1, 4),
+         scenarios=("net_flap",), workloads=("map_heavy",),
+         fleet_sizes=(0, 100, 1000), hazard="per-node"),
+]
+
+
+@pytest.mark.parametrize("kw", SPECS, ids=["paper", "sizes"])
+def test_expand_and_cell_config_match_reference(kw):
+    jspec, tspec = jfleet.SweepSpec(**kw), tfleet.SweepSpec(**kw)
+    assert tspec.to_json() == jspec.to_json()
+    jcells, tcells = jfleet.expand(jspec), tfleet.expand(tspec)
+    assert [dataclasses.astuple(c) for c in tcells] \
+        == [dataclasses.astuple(c) for c in jcells]
+    for jc, tc in zip(jcells, tcells):
+        assert tc.cell_id == jc.cell_id and tc.env_key == jc.env_key
+        jcfg, tcfg = jfleet.cell_config(jspec, jc), tfleet.cell_config(tspec,
+                                                                      tc)
+        tdict = dataclasses.asdict(tcfg)
+        assert tdict.pop("device") is None
+        jdict = {k: v for k, v in dataclasses.asdict(jcfg).items()
+                 if k in tdict}
+        assert tdict == jdict
+
+
+def test_cell_seed_matches_reference():
+    for parts in [("chaos", "baseline", "smoke", 0),
+                  ("sim", "kitchen_sink", "map_heavy", "n1000", 3),
+                  ("search", 0, 7), ()]:
+        assert tfleet.cell_seed(*parts) == jfleet.cell_seed(*parts)
+
+
+def test_expand_rejects_what_the_reference_rejects():
+    for bad in (dict(scenarios=("nope",)), dict(workloads=("nope",)),
+                dict(schedulers=("atlas-nope",)), dict(algo="SVM"),
+                dict(fleet_sizes=(-1,)), dict(hazard="rack")):
+        with pytest.raises(KeyError):
+            jfleet.expand(jfleet.SweepSpec(**bad))
+        with pytest.raises(KeyError):
+            tfleet.expand(tfleet.SweepSpec(**bad))
+    # the dense algos are known to both packages
+    tfleet.expand(tfleet.SweepSpec(algo="N.N."))
+    tfleet.expand(tfleet.SweepSpec(algo="Glm"))
+
+
+def test_aggregate_and_rank_match_reference():
+    records = []
+    for i, (sched, sc, fs) in enumerate(
+            [(s, sc, fs) for s in ("fifo", "atlas-fifo", "fair")
+             for sc in ("baseline", "dn_loss") for fs in (0, 100)]):
+        for seed in range(3):
+            records.append({
+                "scenario": sc, "workload": "smoke", "scheduler": sched,
+                "fleet_size": fs, "seed_index": seed,
+                "metrics": {"pct_tasks_failed": (7 * i + seed) % 5 + 0.5,
+                            "job_exec_time": 100.0 + 13 * i - seed,
+                            "sim_time": 900.0 + i}})
+    agg = tfleet.aggregate(records)
+    assert agg == jfleet.aggregate(records)
+    assert tfleet.rank(agg) == jfleet.rank(agg)
+    for vals in ([], [1.0], [1.0, 2.5, 4.0]):
+        assert tfleet.mean_ci(vals) == jfleet.mean_ci(vals)
+
+
+# ---------------------------------------------------------------- sweeps
+
+@pytest.fixture(scope="module")
+def reference_sweeps():
+    """The reference's small sweep under each executor (its JIT dominates
+    the cost, so it runs once per module)."""
+    return {ex: jfleet.run_sweep(jfleet.SweepSpec(**SMALL), executor=ex,
+                                 log=_quiet)
+            for ex in ("serial", "broker")}
+
+
+@pytest.mark.parametrize("executor", ["serial", "broker"])
+def test_sweep_json_matches_reference(reference_sweeps, executor):
+    ref = reference_sweeps[executor]
+    got = tfleet.run_sweep(tfleet.SweepSpec(**SMALL), executor=executor,
+                           device=CPU, log=_quiet)
+    assert _without_provenance(got) == _without_provenance(ref)
+    if executor == "broker":
+        assert ref["perf"]["broker"]["demand_calls"] > 0
+        assert got["perf"] == ref["perf"]
+    atlas = [c for c in got["cells"] if c["scheduler"] == "atlas-fifo"]
+    assert atlas and all(c["stats"]["predictions"] > 0 for c in atlas)
+    assert got["provenance"]["pr"].startswith("repro_torch-")
+
+
+def test_registry_and_thread_sweeps_match_serial(reference_sweeps, tmp_path):
+    want = _without_provenance(reference_sweeps["serial"])
+    brokered = tfleet.run_sweep(tfleet.SweepSpec(**SMALL), executor="broker",
+                                registry=str(tmp_path / "reg"), device=CPU,
+                                log=_quiet)
+    threaded = tfleet.run_sweep(tfleet.SweepSpec(**SMALL), executor="thread",
+                                workers=2, device=CPU, log=_quiet)
+    assert _without_provenance(threaded) == want
+    out = _without_provenance(brokered)
+    assert out.pop("perf") == _without_provenance(
+        reference_sweeps["broker"])["perf"]
+    assert out == want
+    assert (tmp_path / "reg").is_dir()
+
+
+def test_resumed_sweep_is_byte_identical(tmp_path):
+    spec = tfleet.SweepSpec(schedulers=("fifo", "atlas-fifo"), seeds=1,
+                            scenarios=("baseline",), workloads=("smoke",),
+                            min_samples=40)
+    kw = dict(executor="serial", device=CPU, log=_quiet,
+              resume_dir=str(tmp_path / "cells"))
+    first = tfleet.sweep_json(tfleet.run_sweep(spec, **kw))
+    lines = []
+    again = tfleet.sweep_json(tfleet.run_sweep(spec, **{**kw,
+                                                        "log": lines.append}))
+    assert again == first
+    assert any("resumed" in line for line in lines)
+
+
+def test_cli_writes_the_sweep(tmp_path):
+    out = tmp_path / "out"
+    assert tfleet.main(["--schedulers", "fifo,atlas-fifo", "--seeds", "1",
+                        "--scenarios", "baseline", "--workloads", "smoke",
+                        "--min-samples", "40", "--executor", "serial",
+                        "--device", "cpu", "--out", str(out)]) == 0
+    result = json.loads((out / "SWEEP.json").read_text())
+    assert len(result["cells"]) == 2
+    assert "atlas-fifo" in (out / "SWEEP.md").read_text()
+    assert tfleet.main(["--scenarios", "nope", "--device", "cpu"]) == 2
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(executor="async"), "online/server.py"),
+    (dict(obs_dir="obs"), "obs/"),
+    (dict(obs_live="tcp://localhost:1"), "obs/"),
+    (dict(fault_plan=object(), executor="async"), "online/faults.py"),
+], ids=["async", "obs_dir", "obs_live", "faults"])
+def test_unported_paths_raise(kw, what):
+    with pytest.raises(NotImplementedError, match=what.replace(".", r"\.")):
+        tfleet.run_sweep(tfleet.SweepSpec(**SMALL), device=CPU, log=_quiet,
+                         **kw)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.cluster import fleet, search
 from repro_torch.configs import get_arch, smoke_reduce
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.core.predictor import TaskPredictor
@@ -19,6 +20,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import get_model
 from repro_torch.ml import forest as tforest
+from repro_torch.ml import models
+from repro_torch.ml.cv import cross_validate
 from repro_torch.online.broker import BrokerPredictor, PredictionBroker
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -39,6 +42,20 @@ cfg = ExperimentConfig(
 out = compare("fifo", cfg)
 assert out["atlas"]["invariant_violations"] == 0
 assert out["atlas"]["atlas"]["predictions"] > 0
+import dataclasses
+from repro_torch.cluster.experiment import run_scheduler
+from repro_torch.cluster.fleet import SweepSpec, run_sweep
+from repro_torch.ml.cv import cross_validate
+drifted, _, _ = run_scheduler("atlas-fifo", dataclasses.replace(cfg, drift=True))
+assert drifted["atlas"]["refreshes"] > 0
+sweep = run_sweep(SweepSpec(workloads=("smoke",), seeds=1, min_samples=40),
+                  executor="broker", device="cpu", log=lambda *a: None)
+assert sweep["perf"]["broker"]["dispatches"] > 0
+import numpy as np
+X = np.random.RandomState(0).rand(60, 3).astype(np.float32)
+for algo in ("Glm", "N.N."):
+    cross_validate(algo, X, (X[:, 0] > 0.5).astype(np.float32), k=2,
+                   device="cpu")
 leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
@@ -114,8 +131,17 @@ def no_cuda(monkeypatch):
     lambda: PredictionBroker(),
     lambda: tforest.fit_oblivious_forest(np.ones((4, 2), np.float32),
                                          np.ones(4, np.float32)),
+    lambda: models.GLM(),
+    lambda: models.NeuralNet(),
+    lambda: cross_validate("Glm", np.ones((8, 2), np.float32),
+                           np.ones(8, np.float32), k=2),
+    lambda: fleet.run_sweep(fleet.SweepSpec(workloads=("smoke",), seeds=1),
+                            executor="serial", log=lambda *a: None),
+    lambda: search.run_search(search.SearchConfig(budget=1),
+                              log=lambda *a: None),
 ], ids=["resolve_none", "resolve_cuda", "TaskPredictor", "BrokerPredictor",
-        "PredictionBroker", "fit_oblivious_forest"])
+        "PredictionBroker", "fit_oblivious_forest", "GLM", "NeuralNet",
+        "cross_validate", "run_sweep", "run_search"])
 def test_defaults_raise_without_gpu(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()

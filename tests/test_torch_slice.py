@@ -28,7 +28,7 @@ CPU = "cpu"
 
 def _port_config(jcfg) -> texp.ExperimentConfig:
     """The port's ExperimentConfig with the same values as the JAX one
-    (the JAX config's telemetry/drift knobs, unported, stay at defaults)."""
+    (the JAX config's telemetry knobs, unported, stay at defaults)."""
     ported = {f.name for f in dataclasses.fields(texp.ExperimentConfig)}
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg) if f.name in ported}
