@@ -112,6 +112,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
            seed, 20 nodes, the smoke workload, invariants on) through
            run_search on the card and on the CPU: equal results apart from
            provenance, no invariant violation
+  serve_async
+           the sweep's baseline cells (fifo and atlas-fifo x 1 seed, 1000
+           nodes, map_heavy, per-node hazard) four times: the broker
+           executor, the async executor (an AsyncBroker on the card), the
+           async executor under benchmarks/chaos_smoke.py's fault shape with
+           the request timeout at least 4x the clean run's longest wait,
+           and the async executor on the CPU in a spawned process; spec,
+           cells, aggregates and rankings equal, perf.broker equal across
+           the card runs, faults injected and retried with no fallback,
+           every probability the card runs served equal to the numpy
+           mirror, forest_infer_grouped launched exactly once per server
+           dispatch; walls and longest waits
+  online_bench
+           python -m repro_torch.online.bench's run_bench_sizes on the
+           card at the paper's fleet and 1000 nodes (12,000 rows, 12
+           clients, map_heavy / bursty_tt), open loop on inproc/poisson,
+           inproc/bursty and tcp/poisson: every mode's outputs equal the
+           numpy mirror, rows/s above 0, forest_infer launched exactly
+           once per predictor dispatch of the scalar mode and
+           forest_infer_grouped once per flush dispatch; rows/s, open-loop
+           p50/p95/p99 and SLO violations, whether the CLI's tail budget
+           held, the tcp serializer
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.
@@ -241,6 +263,29 @@ SWEEP = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
              fleet_sizes=(FLEET,), hazard="per-node")
 SWEEP_WORKERS = 2
 SWEEP_KEYS = ("spec", "cells", "aggregates", "rankings")
+# serve_async: the sweep's baseline half (kitchen_sink's 333,000 decisions
+# stay in sweep only), served four ways.  Seeds cut from 2 to 1 for time:
+# at 2 seeds the four runs took 39-54 s each on the card (1.87 M scored
+# rows, 12,856 demand calls) and the phase 144 s (PERF.md); the
+# fleet size is not cut
+SERVE_ASYNC = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
+                   scenarios=("baseline",), workloads=("map_heavy",),
+                   fleet_sizes=(FLEET,), hazard="per-node")
+# the fault shape of benchmarks/chaos_smoke.py's parity plan; the request
+# timeout is sized from the clean async run's longest wait (at least
+# TIMEOUT_OVER_WAIT times it), the deadline is FAULT_BOUNDS' largest
+CHAOS_PLAN = dict(seed=7, drop=0.12, delay=0.2, delay_s=(0.0005, 0.002),
+                  duplicate=0.08, restart_after=(40,), max_events=24,
+                  deadline_s=600.0)
+TIMEOUT_OVER_WAIT = 4.0
+MIN_TIMEOUT_S = 0.25
+# online_bench: run_bench_sizes at the paper's fleet and at FLEET (whose
+# candidate-set requests are 256 rows), the open loop on inproc/poisson,
+# inproc/bursty and tcp/poisson
+BENCH = dict(rows=12000, clients=12, workload="map_heavy",
+             scenario="bursty_tt", impl=None)
+BENCH_SIZES = (0, FLEET)
+OPEN_CONFIGS = ("inproc_bursty", "inproc_poisson", "tcp_poisson")
 # benchmarks/scenario_search.py --smoke
 SEARCH_SMOKE = dict(budget=8, seeds=1, fleet_size=20, scenario="baseline",
                     workload="smoke", executor="serial",
@@ -1787,17 +1832,18 @@ def phase_cv(torch, dev, smi, map_data) -> dict:
     return launches
 
 
-def _cpu_sweep(spec_kw: dict) -> tuple:
-    """The sweep's serial run on the CPU, in a process of its own so that
-    it overlaps the card runs: (result, wall seconds, log)."""
+def _cpu_sweep(spec_kw: dict, executor: str = "serial") -> tuple:
+    """A sweep on the CPU, in a process of its own so that it overlaps the
+    card runs: (result, wall seconds, log, fault stats of an async run)."""
     import torch
     from repro_torch.cluster.fleet import SweepSpec, run_sweep
     torch.set_num_threads(2)
     log: list = []
+    stats = {} if executor == "async" else None
     t0 = time.perf_counter()
-    result = run_sweep(SweepSpec(**spec_kw), executor="serial", device="cpu",
-                       log=log.append)
-    return result, time.perf_counter() - t0, log
+    result = run_sweep(SweepSpec(**spec_kw), executor=executor, device="cpu",
+                       fault_stats=stats, log=log.append)
+    return result, time.perf_counter() - t0, log, stats
 
 
 def phase_sweep(torch, dev, smi) -> dict:
@@ -1830,7 +1876,7 @@ def phase_sweep(torch, dev, smi) -> dict:
             walls[name] = time.perf_counter() - t0
             launches[name] = _forest_launches(torch)
         t0 = time.perf_counter()
-        runs["serial_cpu"], walls["serial_cpu"], logs["serial_cpu"] = \
+        runs["serial_cpu"], walls["serial_cpu"], logs["serial_cpu"], _ = \
             cpu_run.result()
         walls["waited_for_serial_cpu"] = time.perf_counter() - t0
     first = runs["serial"]
@@ -1857,6 +1903,164 @@ def phase_sweep(torch, dev, smi) -> dict:
           "log": logs})
     return {"sweep_serial": launches["serial"],
             "sweep_broker": launches["broker"]}
+
+
+def phase_serve_async(torch, dev, smi) -> dict:
+    """The §5 sweep's baseline cells at 1000 nodes and one seed served
+    four ways: (a) the broker executor, (b) the async executor (an
+    AsyncBroker over inproc:// on the card), (c) the async executor under
+    CHAOS_PLAN, its timeout sized from (b)'s longest wait, (d) the async
+    executor on the CPU in a spawned process alongside.  Equal results,
+    perf.broker equal across (a)-(c), faults injected and retried with no
+    fallback, every probability the card runs served equal to the numpy
+    mirror, and the grouped kernel launched once per server dispatch.
+    Returns the clean async run's forest launches."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.cluster.fleet import SweepSpec, run_sweep
+    from repro_torch.kernels import ops
+    from repro_torch.online.faults import FAULT_BOUNDS, FaultPlan
+    spec = SweepSpec(**SERVE_ASYNC)
+    runs, walls, launches, logs, faults, served = {}, {}, {}, {}, {}, {}
+
+    def run(name, **kw):
+        logs[name], log = [], []
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _served(log):
+            runs[name] = run_sweep(spec, device=dev, log=logs[name].append,
+                                   **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = _forest_launches(torch)
+        served[name] = _check_served(log, f"serve_async {name}")
+
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_run = pool.submit(_cpu_sweep, SERVE_ASYNC, "async")
+        run("broker", executor="broker")
+        faults["async"] = {}
+        run("async", executor="async", fault_stats=faults["async"])
+        wait = faults["async"]["max_request_wait_s"]
+        timeout = max(TIMEOUT_OVER_WAIT * wait, MIN_TIMEOUT_S)
+        check(timeout <= FAULT_BOUNDS["request_timeout_s"].hi,
+              f"serve_async: the clean run waited {wait} s, too long for a "
+              "timeout inside FAULT_BOUNDS")
+        plan = FaultPlan(**CHAOS_PLAN, request_timeout_s=timeout).validate()
+        faults["async_faulted"] = {}
+        run("async_faulted", executor="async", fault_plan=plan,
+            fault_stats=faults["async_faulted"])
+        t0 = time.perf_counter()
+        (runs["async_cpu"], walls["async_cpu"], logs["async_cpu"],
+         faults["async_cpu"]) = cpu_run.result()
+        walls["waited_for_async_cpu"] = time.perf_counter() - t0
+    first = runs["broker"]
+    for name, r in runs.items():
+        for key in SWEEP_KEYS:
+            check(r[key] == first[key], f"serve_async {name}: {key} differs "
+                  "from the broker run's")
+    for name in ("async", "async_faulted"):
+        check(runs[name]["perf"] == first["perf"], f"serve_async {name}: "
+              "perf.broker differs from the broker run's")
+    broker = first["perf"]["broker"]
+    check(broker["demand_calls"] > 0, "serve_async: no demand call")
+    for name in ("broker", "async", "async_faulted"):
+        check(launches[name]["forest_infer_grouped"] == broker["dispatches"],
+              f"serve_async {name}: {launches[name]['forest_infer_grouped']}"
+              f" forest_infer_grouped launches, {broker['dispatches']} "
+              "dispatches")
+    chaos = faults["async_faulted"]
+    check(chaos["injected"]["events"] > 0, "serve_async: no fault injected")
+    check(chaos["client_retries"] > 0, "serve_async: no client retry")
+    check(chaos["fallbacks"] == 0, f"serve_async: {chaos['fallbacks']} "
+          "fallbacks under the fault plan (a slow card path hidden as an "
+          "outage)")
+    for name in ("async", "async_cpu"):
+        check(faults[name]["fallbacks"] == 0
+              and faults[name]["client_retries"] == 0,
+              f"serve_async {name}: retries or fallbacks in a clean run")
+    emit({"phase": "serve_async", "nvidia_smi": smi, "spec": first["spec"],
+          "wall_s": walls, "launches": launches, "perf_broker": broker,
+          "equal": list(SWEEP_KEYS),
+          "perf_equal_cpu": runs["async_cpu"].get("perf") == first["perf"],
+          "fault_plan": plan.to_dict(), "fault_stats": faults,
+          "longest_wait_s": {k: v["max_request_wait_s"]
+                             for k, v in faults.items()},
+          "served": served,
+          "atlas_stats": {c["cell_id"]: c["stats"] for c in first["cells"]
+                          if c["scheduler"] != "fifo"},
+          "log": logs})
+    return launches["async"]
+
+
+def phase_online_bench(torch, dev, smi) -> dict:
+    """The online load bench on the card (run_bench_sizes at BENCH_SIZES,
+    BENCH): every mode's outputs equal the numpy mirror, rows/s above 0,
+    forest_infer launched once per predictor dispatch of run_scalar and
+    forest_infer_grouped once per broker, saturated and open-loop flush
+    dispatch.  Returns the forest launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.online import bench, transport
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = bench.run_bench_sizes(BENCH_SIZES, device=dev, **BENCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _forest_launches(torch)
+    sizes = summary["per_fleet_size"]
+    check(sorted(sizes, key=int) == [str(n) for n in BENCH_SIZES],
+          "online_bench: fleet sizes")
+    scalar_dispatches = grouped_dispatches = 0
+    record = {}
+    for size, s in sizes.items():
+        check(s["parity"] is True, f"online_bench n{size}: scalar, broker "
+              "or saturated outputs != numpy mirror")
+        check(sorted(s["open_loop"]) == list(OPEN_CONFIGS),
+              f"online_bench n{size}: open-loop configs")
+        for mode in ("scalar", "broker", "saturated"):
+            check(s[mode]["rows_per_s"] > 0, f"online_bench n{size}: no "
+                  f"{mode} throughput")
+        check(s["scalar"]["rows"] == BENCH["rows"], "online_bench rows")
+        # predict_batch once per request, then once per row
+        scalar_dispatches += s["scalar"]["dispatches"] + s["scalar"]["rows"]
+        grouped_dispatches += (s["broker"]["dispatches"]
+                               + s["saturated"]["dispatches"])
+        tails = {}
+        for cfg, r in s["open_loop"].items():
+            check(r["parity"] is True, f"online_bench n{size} {cfg}: "
+                  "outputs != numpy mirror")
+            check(r["rows_per_s"] > 0, f"online_bench n{size} {cfg}: no "
+                  "throughput")
+            grouped_dispatches += r["dispatches"]
+            lm = r["latency_ms"]
+            tails[cfg] = bool(lm["p99"] <= max(10.0 * lm["p50"],
+                                               bench.P99_FLOOR_MS))
+        record[size] = {
+            "request_sizes": list(bench.request_sizes(int(size))),
+            "requests": s["scalar"]["requests"],
+            "rows_per_s": {m: s[m]["rows_per_s"]
+                           for m in ("scalar", "broker", "saturated")},
+            "per_decision_rows_per_s": s["scalar"]["per_decision_rows_per_s"],
+            "broker": {k: s["broker"][k] for k in (
+                "dispatches", "flushes", "max_flush_rows", "latency_ms")},
+            "open_loop": {cfg: {k: r[k] for k in (
+                "rate_rps", "requests", "rows_per_s", "latency_ms",
+                "slo_violation_rate", "flushes", "max_flush_rows",
+                "flush_causes")} for cfg, r in s["open_loop"].items()},
+            "tail_budget_held": tails, "speedup": s["speedup"],
+            "dispatch_reduction": s["dispatch_reduction"]}
+    check(launches["forest_infer"] == scalar_dispatches,
+          f"online_bench: {launches['forest_infer']} forest_infer launches, "
+          f"{scalar_dispatches} predictor dispatches")
+    check(launches["forest_infer_grouped"] == grouped_dispatches,
+          f"online_bench: {launches['forest_infer_grouped']} "
+          f"forest_infer_grouped launches, {grouped_dispatches} dispatches")
+    emit({"phase": "online_bench", "nvidia_smi": smi, "wall_s": wall,
+          "config": {**BENCH, "fleet_sizes": list(BENCH_SIZES)},
+          "tcp_serializer": ("msgpack" if transport.msgpack is not None
+                             else "json"),
+          "parity": True, "launches": launches, "per_fleet_size": record})
+    return launches
 
 
 def phase_drift(torch, dev, smi) -> dict:
@@ -1996,6 +2200,8 @@ def main(argv=None) -> int:
     by_path.update(phase_sweep(torch, dev, smi))
     by_path["drift"] = phase_drift(torch, dev, smi)
     by_path["search"] = phase_search(torch, dev, smi)
+    by_path["serve_async"] = phase_serve_async(torch, dev, smi)
+    by_path["online_bench"] = phase_online_bench(torch, dev, smi)
     kernels = []
     for k in FOREST_KERNELS:
         main_t = timing[k][main_rows[k]]

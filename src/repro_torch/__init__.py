@@ -13,8 +13,9 @@ tree and public names and imports nothing from it.  Ported so far:
   ml/          oblivious forests (fit + inference), the paper's six
                models (GLM, Tree, CTree, R.F., Boost, N.N.) and the 10-fold
                CV harness.
-  online/      the batched prediction broker, the model registry and the
-               drift-aware refresher.
+  online/      the batched prediction broker, the model registry, the
+               drift-aware refresher, the transport, the AsyncBroker
+               service with fault injection, and the load bench.
   configs/     the model zoo's ten arch configs and shapes.
   parallel/    parameter definitions with logical axes; seeded init.
   models/      the dense, ssm (RWKV6) and hybrid (Mamba2 + shared

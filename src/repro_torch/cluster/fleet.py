@@ -35,24 +35,31 @@ Design points:
   dispatches (reported under ``perf.broker``).  ``--registry DIR`` publishes
   each training wave's models to a versioned ``ModelRegistry`` and ships
   *version ids* to the ATLAS wave instead of raw trace arrays.
+* **Async serving.**  ``--executor async`` serves the ATLAS wave through one
+  ``repro_torch.online.server.AsyncBroker`` over the transport layer
+  (policy="barrier"), reproducing the broker executor's SWEEP.json byte for
+  byte, ``perf.broker`` included.  ``--faults FILE`` injects a seeded
+  ``FaultPlan`` into that serving path (drops, delays, duplicates, abrupt
+  closes, listener restarts); clients retry, the broker replays, and the
+  SWEEP bytes still match a fault-free run.  The retry/replay/fallback
+  counters land in ``<out>/FAULTS.json``.
 * **Device.**  Every cell's predictor fits and scores on ``device`` (CUDA
   unless told otherwise; ``--device cpu`` on the CPU).  The device is not a
   ``SweepSpec`` field: the spec is written into ``SWEEP.json``, whose bytes
   do not depend on it.
 
-The JAX package's ``async`` executor, fault plans and live telemetry
-(``--obs``, ``--obs-live``, ``--faults``) need ``online/server.py``,
-``online/faults.py`` and ``obs/``, which are not ported yet; asking for them
-raises ``NotImplementedError``.
+The JAX package's live telemetry (``--obs``, ``--obs-live``) needs
+``obs/``, which is not ported yet; asking for it raises
+``NotImplementedError``.
 
 CLI:
 
   python -m repro_torch.cluster.fleet \
       --schedulers fifo,atlas-fifo --seeds 4 \
       --scenarios baseline,bursty_tt,dn_loss [--workloads default] \
-      [--executor process|thread|serial|broker] [--workers N] \
-      [--hazard cluster|per-node] [--registry DIR] [--device cpu] \
-      [--out experiments]
+      [--executor process|thread|serial|broker|async] [--workers N] \
+      [--hazard cluster|per-node] [--registry DIR] [--faults PLAN.json] \
+      [--device cpu] [--out experiments]
 """
 
 from __future__ import annotations
@@ -331,6 +338,91 @@ def _run_atlas_wave_brokered(wave2, registry_dir, device):
     return out, perf
 
 
+def _run_atlas_wave_async(wave2, registry_dir, device, fault_plan=None,
+                          fault_stats=None):
+    """Run every ATLAS cell as a *transport client* of one serving
+    ``AsyncBroker`` (policy="barrier") on ``device``: the same lock-step
+    rounds as ``--executor broker``, driven by an event loop over
+    ``repro_torch.online.transport`` comms instead of a condition variable.
+    Rounds are a pure function of each client's request sequence, so the
+    SWEEP.json bytes — including ``perf.broker`` — match the threaded
+    broker executor exactly.
+
+    ``fault_plan`` (``repro_torch.online.faults.FaultPlan``) injects the
+    plan's seeded fault schedule into the serving path (reply drops/delays/
+    duplicates, abrupt closes, listener restarts); clients then run with the
+    plan's retry budget and the broker's request replay keeps retried
+    flushes idempotent — the SWEEP bytes still match a fault-free run.
+    ``fault_stats`` (a caller-owned dict) receives the retry/replay/fallback
+    counters and the longest request wait; they are reported there and
+    *only* there so the deterministic ``perf.broker`` block stays
+    byte-identical under chaos.  Returns (records, perf)."""
+    from repro_torch.online.broker import BrokerPredictor
+    from repro_torch.online.server import AsyncBroker, BrokerClient
+
+    server = AsyncBroker(policy="barrier", device=device).start()
+    predictors = []
+    clients = []
+    client_kw = {}
+    if fault_plan is not None:
+        client_kw = dict(request_timeout_s=fault_plan.request_timeout_s,
+                         deadline_s=fault_plan.deadline_s,
+                         retry_seed=fault_plan.seed,
+                         # backoff scaled to the timeout: retry pacing should
+                         # track how fast this client detects a lost reply,
+                         # not a wall-clock constant sized for remote links
+                         backoff_base_s=fault_plan.request_timeout_s / 4,
+                         backoff_cap_s=fault_plan.request_timeout_s * 4)
+
+    def run_one(args):
+        cell, cfg, payload = args
+        client = BrokerClient(address, server.loop, **client_kw)
+        clients.append(client)
+        try:  # client.done() exactly once, or the round waits forever
+            predictor = _load_predictor(
+                BrokerPredictor(broker=client, **_predictor_kw(cfg)),
+                payload, registry_dir)
+            predictors.append(predictor)
+            metrics, _, _ = run_scheduler(cell.scheduler, cfg, predictor)
+        finally:
+            client.done()
+            client.close()
+        return cell, _numeric_metrics(metrics), metrics["sched_stats"]
+
+    try:
+        address = server.serve(fault_plan=fault_plan)
+        server.add_clients(len(wave2))
+        # same rule as the threaded broker wave: every registered client
+        # needs a live thread or the barrier round can never complete
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=max(len(wave2), 1)) as pool:
+            out = list(pool.map(run_one, wave2))
+        demand_calls = sum(p.n_demand_calls for p in predictors)
+        demand_rows = sum(p.n_demand_rows for p in predictors)
+        perf = {"broker": {
+            **server.stats(),
+            "demand_calls": demand_calls,
+            "demand_rows": demand_rows,
+            "dispatch_reduction": round(
+                demand_calls / max(server.n_dispatches, 1), 2),
+        }}
+        if fault_stats is not None:
+            fault_stats.update(server.fault_stats())
+            fault_stats["client_retries"] = sum(
+                c.n_retries for c in clients)
+            fault_stats["client_reconnects"] = sum(
+                c.n_reconnects for c in clients)
+            fault_stats["fallbacks"] = sum(
+                p.n_fallbacks for p in predictors)
+            fault_stats["fallback_rows"] = sum(
+                p.n_fallback_rows for p in predictors)
+            fault_stats["max_request_wait_s"] = max(
+                (c.max_wait_s for c in clients), default=0.0)
+    finally:
+        server.stop()
+    return out, perf
+
+
 class _SerialExecutor:
     def map(self, fn, it):
         return list(map(fn, it))
@@ -343,9 +435,9 @@ class _SerialExecutor:
 
 
 def _make_executor(kind: str, workers: int | None):
-    if kind in ("serial", "broker"):
-        # "broker" batches only the ATLAS wave (threads sharing one broker);
-        # wave 1 runs serially in-process so payloads stay local
+    if kind in ("serial", "broker", "async"):
+        # "broker"/"async" batch only the ATLAS wave (threads sharing one
+        # broker); wave 1 runs serially in-process so payloads stay local
         return _SerialExecutor()
     if kind == "thread":
         return concurrent.futures.ThreadPoolExecutor(max_workers=workers)
@@ -355,8 +447,6 @@ def _make_executor(kind: str, workers: int | None):
         ctx = multiprocessing.get_context("spawn")
         return concurrent.futures.ProcessPoolExecutor(
             max_workers=workers or os.cpu_count(), mp_context=ctx)
-    if kind == "async":
-        _not_ported("executor 'async'", "online/server.py (AsyncBroker)")
     raise ValueError(f"unknown executor {kind!r} ({'|'.join(EXECUTORS)})")
 
 
@@ -378,7 +468,8 @@ class _CellLedger:
     from different sweeps.  The device is not in the fingerprint: cells are
     equal on every device.
 
-    The broker ATLAS wave is reused all-or-nothing: its ``perf.broker``
+    The broker/async ATLAS wave is reused all-or-nothing: its
+    ``perf.broker``
     counters are a function of the *entire* barrier-round schedule, so
     partial reuse would stitch together a schedule no real run produces.
     That wave only resumes when every cell record plus the wave perf record
@@ -455,8 +546,8 @@ class _CellLedger:
         self._write(self.dir / "w2__PERF.json", perf)
 
     def load_wave2_batch(self, cells):
-        """All-or-nothing reuse of the broker wave: (records, perf) when
-        every cell and the wave perf record are present, else None."""
+        """All-or-nothing reuse of the broker/async wave: (records, perf)
+        when every cell and the wave perf record are present, else None."""
         try:
             perf = json.loads((self.dir / "w2__PERF.json").read_text())
         except (OSError, ValueError):
@@ -496,15 +587,19 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
     reassembles the identical ``SWEEP.json`` bytes.  ``device`` is where
     every predictor fits and scores (None: CUDA, raising without a GPU).
 
-    ``obs_dir``, ``obs_live``, ``fault_plan`` / ``fault_stats`` and
-    ``executor="async"`` are the JAX package's telemetry, fault-injection and
-    transport-served paths; their modules are not ported yet, and asking for
-    them raises ``NotImplementedError``."""
+    ``executor="async"`` serves wave 2 through one ``AsyncBroker`` over the
+    transport (the broker executor's bytes, ``perf.broker`` included).
+    ``fault_plan`` (async executor only) injects a seeded fault schedule
+    into that serving path; ``fault_stats`` (a caller-owned dict) receives
+    the retry/replay/fallback counters, kept out of the returned result so
+    SWEEP bytes match a fault-free run.  ``obs_dir`` and ``obs_live`` are
+    the JAX package's live telemetry, whose ``obs/`` package is not ported
+    yet: asking for them raises ``NotImplementedError``."""
     if obs_dir is not None or obs_live is not None:
         _not_ported("live telemetry (obs_dir / obs_live)", "the obs/ package")
-    if fault_plan is not None or fault_stats is not None:
-        _not_ported("fault injection (fault_plan)",
-                    "online/faults.py and online/server.py")
+    if fault_plan is not None and executor != "async":
+        raise ValueError("fault_plan requires executor='async' "
+                         "(the transport-served ATLAS wave)")
     device = str(resolve_device(device))
     t0 = time.perf_counter()
     cells = expand(spec)
@@ -579,15 +674,19 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
         wave2 = [(c, _cfg(c),
                   train_data.get((atlas_base_name(c.scheduler),) + c.env_key))
                  for c in atlas_cells]
-        if executor == "broker":
+        if executor in ("broker", "async"):
             cached = (ledger.load_wave2_batch([w[0] for w in wave2])
                       if ledger is not None else None)
             if cached is not None:
                 wave2_out, perf = cached
                 n2_resumed = len(wave2_out)
-            else:
+            elif executor == "broker":
                 wave2_out, perf = _run_atlas_wave_brokered(wave2, registry,
                                                            device)
+            else:
+                wave2_out, perf = _run_atlas_wave_async(
+                    wave2, registry, device, fault_plan=fault_plan,
+                    fault_stats=fault_stats)
             if ledger is not None and not n2_resumed:
                 for cell, metrics, stats in wave2_out:
                     ledger.store_wave2(cell, metrics, stats)
@@ -810,8 +909,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--algo", default="R.F.")
     ap.add_argument("--min-samples", type=int, default=150,
                     help="min labelled rows before a model trains")
-    ap.add_argument("--executor", default="process", choices=EXECUTORS,
-                    help="'async' is not ported yet (raises)")
+    ap.add_argument("--executor", default="process", choices=EXECUTORS)
     ap.add_argument("--hazard", default="cluster",
                     choices=("cluster", "per-node"),
                     help="chaos scaling: 'cluster' keeps the "
@@ -841,8 +939,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "mid-run restarts to byte-identical SWEEP.json "
                          "without re-running finished cells")
     ap.add_argument("--faults", default=None, metavar="FILE",
-                    help="fault plan for the async executor (needs "
-                         "online/faults.py, not ported yet: raises)")
+                    help="JSON FaultPlan (repro_torch.online.faults) "
+                         "injected into the --executor async serving path; "
+                         "retry/replay/fallback counters land in "
+                         "<out>/FAULTS.json — SWEEP.json bytes are "
+                         "unaffected")
     ap.add_argument("--out", default="experiments",
                     help="directory for SWEEP.json + SWEEP.md")
     ap.add_argument("--list-scenarios", action="store_true")
@@ -871,15 +972,33 @@ def main(argv=None) -> int:
     except KeyError as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2
+    fault_plan = None
+    if args.faults:
+        from repro_torch.online.faults import FaultPlan
+        if args.executor != "async":
+            print("error: --faults requires --executor async",
+                  file=sys.stderr)
+            return 2
+        fault_plan = FaultPlan.from_dict(
+            json.loads(pathlib.Path(args.faults).read_text()))
     resume_dir = (str(pathlib.Path(args.out) / "cells")
                   if args.resume else None)
+    fault_stats = {} if fault_plan is not None else None
     result = run_sweep(
         spec, executor=args.executor, workers=args.workers,
         registry=args.registry,
         obs_dir=str(pathlib.Path(args.out) / "obs") if args.obs else None,
         obs_live=args.obs_live, resume_dir=resume_dir,
-        fault_plan=args.faults, device=args.device)
+        fault_plan=fault_plan, fault_stats=fault_stats, device=args.device)
     jp, mp = write_outputs(result, args.out)
+    if fault_stats is not None:
+        fp = pathlib.Path(args.out) / "FAULTS.json"
+        fp.write_text(json.dumps(fault_stats, indent=2, sort_keys=True)
+                      + "\n")
+        print(f"[fleet] fault stats in {fp}: "
+              f"{fault_stats.get('client_retries', 0)} retries, "
+              f"{fault_stats.get('fallbacks', 0)} fallbacks, "
+              f"{fault_stats['injected']['events']} injected events")
     sys.stdout.write(sweep_markdown(result))
     print(f"[fleet] wrote {jp} and {mp}")
     return 0

@@ -42,6 +42,11 @@ class AtlasStats(SchedulerStats):
     refreshes: int | None = None
     promotions: int | None = None
     rollbacks: int | None = None
+    # decisions taken while the serving predictor was degraded (broker
+    # unreachable past its retry budget, scoring fell back to the paper's
+    # schedule-anyway default); None/omitted on every healthy run so clean
+    # cell stats keep their historical bytes
+    degraded_decisions: int | None = None
 
 
 class ATLASScheduler(Scheduler):
@@ -74,6 +79,7 @@ class ATLASScheduler(Scheduler):
         self.n_relocations = 0
         self.n_penalties = 0
         self.n_dead_probes = 0
+        self.n_degraded_decisions = 0
 
     # ------------------------------------------------------------------ binding
     def bind(self, sim):
@@ -117,6 +123,11 @@ class ATLASScheduler(Scheduler):
         sim = self.sim
         self.n_predictions += 1
         p = self.predictor.p_success(sim, task, node, speculative)
+        if getattr(self.predictor, "degraded", False):
+            # graceful degradation: the serving path is answering with the
+            # untrained-predictor default (p=1.0, schedule anyway) — count
+            # the decision so operators can bound the outage's blast radius
+            self.n_degraded_decisions += 1
 
         if p >= self.threshold:
             # ---- predicted SUCCESS: verify TT/DN liveness, then slots
@@ -247,4 +258,6 @@ class ATLASScheduler(Scheduler):
                 "promotions": self.refresher.promotions,
                 "rollbacks": self.refresher.rollbacks}
                if self.refresher is not None else {}),
+            **({"degraded_decisions": self.n_degraded_decisions}
+               if self.n_degraded_decisions else {}),
         )

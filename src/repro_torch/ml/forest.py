@@ -444,6 +444,21 @@ def _staging(device: torch.device) -> _Staging:
     return st
 
 
+def warm_up(device) -> None:
+    """Ready the calling thread for its first scoring call on ``device``
+    without launching a kernel: on the card, build (or load) the kernel
+    library and allocate this thread's pinned staging buffers.  A serving
+    thread calls it before it takes requests, so that no request waits on
+    the build or the first pinned allocation; the launch counts do not
+    move."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return
+    from repro_torch.kernels import _build
+    _build.load()
+    _staging(dev)._grow(1, 1)
+
+
 def forest_predict_grouped(groups, *, impl: str | None = None,
                            device=None) -> tuple[list, int]:
     """One block-diagonal inference pass over many (ForestParams, X) groups.

@@ -14,13 +14,25 @@ Two layers, composable:
 * ``PredictionBroker``: batches *across* clients.  Requests append their rows
   into per-model columnar buffers under the broker lock; a flush scores each
   model's filled prefix as ONE slice of ONE block-diagonal pass
-  (``ml.forest.forest_predict_grouped``) and scatters spans back.  A request
-  parks until every registered client has one queued (a lock-step barrier
-  round).  Rounds are a pure function of each client's request sequence — no
-  timers — so flush/dispatch counts are deterministic.  When a single client
-  remains (skewed wave: one long run going solo), the round would contain
-  exactly its own request, so ``submit`` scores it inline and skips the
-  park/notify machinery entirely (identical accounting).
+  (``ml.forest.forest_predict_grouped``) and scatters spans back.  Two flush
+  policies:
+
+    policy="barrier"  (default) a request parks until every registered client
+                      has one queued (a lock-step round).  Rounds are a pure
+                      function of each client's request sequence — no timers —
+                      so flush/dispatch counts are deterministic and a
+                      brokered sweep reproduces the serial sweep byte-for-byte.
+                      When a single client remains (skewed wave: one long cell
+                      running solo), the round would contain exactly its own
+                      request, so ``submit`` scores it inline and skips the
+                      park/notify machinery entirely (identical accounting).
+    policy="depth"    queue-depth flush with bounded delay: flush as soon as
+                      ``depth`` rows are queued, or ``max_delay`` seconds after
+                      the first request of a batch arrived — whichever comes
+                      first.  Tail batches stay fat on skewed waves at the
+                      price of wall-clock timers (row-level outputs are still
+                      bit-identical; flush *counts* become timing-dependent,
+                      so the deterministic sweeps keep the barrier).
 
 Exactness: probabilities must not depend on how requests are batched, or
 decisions would drift between executors.  Per-row forest arithmetic is
@@ -47,6 +59,7 @@ from repro_torch.cluster.telemetry import N_FEATURES, attempt_features
 from repro_torch.core.predictor import TaskPredictor, forest_family_params
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.ml.forest import forest_predict_grouped
+from repro_torch.online.faults import PredictorUnavailableError
 
 _EMPTY = np.zeros(0, np.float32)
 
@@ -175,19 +188,29 @@ class _Pending:
 
 
 class PredictionBroker:
-    """Cross-client batching server with barrier-round flushes.
+    """Cross-client batching server with barrier or queue-depth flushes.
 
-    Clients are registered up front (``add_clients``) so round membership
-    never depends on thread start-up timing; each client calls ``done()``
-    (in a ``finally``) when its run completes.  ``submit`` blocks until the
-    flush containing the request completes."""
+    Clients are registered up front (``add_clients``) so barrier-round
+    membership never depends on thread start-up timing; each client calls
+    ``done()`` (in a ``finally``) when its run completes.  ``submit`` blocks
+    until the flush containing the request completes."""
 
-    def __init__(self, impl: str | None = None, device=None):
+    def __init__(self, impl: str | None = None, device=None,
+                 policy: str = "barrier", depth: int = 256,
+                 max_delay: float = 0.002):
+        if policy not in ("barrier", "depth"):
+            raise ValueError(f"unknown flush policy {policy!r}")
         self.impl = impl
         self.device = resolve_device(device)
+        self.policy = policy
+        self.depth = depth
+        self.max_delay = max_delay
         self._cv = threading.Condition()
         self._queue: list[_Pending] = []
+        self._queued_rows = 0
         self._clients = 0
+        self._timer: threading.Timer | None = None
+        self._timer_gen = 0
         # accounting
         self.n_flushes = 0
         self.n_dispatches = 0
@@ -195,6 +218,7 @@ class PredictionBroker:
         self.n_requests = 0
         self.max_flush_rows = 0
         self.n_solo_flushes = 0
+        self.n_deadline_flushes = 0
 
     # ------------------------------------------------------------ lifecycle
     def add_clients(self, n: int = 1):
@@ -206,7 +230,8 @@ class PredictionBroker:
         must not hold the barrier open for it."""
         with self._cv:
             self._clients -= 1
-            if self._queue and len(self._queue) >= max(self._clients, 1):
+            if self.policy == "barrier" and self._queue \
+                    and len(self._queue) >= max(self._clients, 1):
                 self._flush_locked()
 
     # ------------------------------------------------------------ serving
@@ -217,21 +242,49 @@ class PredictionBroker:
             return []
         with self._cv:
             self.n_requests += 1
-            if self._clients <= 1 and not self._queue:
-                # solo client: a round would contain exactly this one
+            if self.policy == "barrier" and self._clients <= 1 \
+                    and not self._queue:
+                # solo client: a barrier round would contain exactly this one
                 # request — score it inline (identical flush accounting)
                 # instead of paying the park/notify machinery per request
                 self.n_solo_flushes += 1
                 return self._score(groups)
             p = _Pending(groups)
             self._queue.append(p)
-            if len(self._queue) >= max(self._clients, 1):
+            self._queued_rows += sum(np.asarray(X).shape[0]
+                                     for _, X in groups)
+            if self._should_flush():
                 self._flush_locked()
+            elif self.policy == "depth" and self._timer is None:
+                self._arm_timer()
             while not p.done:
                 self._cv.wait()
         if p.error is not None:
             raise p.error
         return p.outs
+
+    def _should_flush(self) -> bool:
+        if self.policy == "barrier":
+            return len(self._queue) >= max(self._clients, 1)
+        return self._queued_rows >= self.depth
+
+    # ------------------------------------------------------------ depth timer
+    def _arm_timer(self):
+        self._timer_gen += 1
+        gen = self._timer_gen
+        t = threading.Timer(self.max_delay, self._deadline_flush, args=(gen,))
+        t.daemon = True
+        self._timer = t
+        t.start()
+
+    def _deadline_flush(self, gen: int):
+        with self._cv:
+            if gen != self._timer_gen:
+                return                        # a depth flush beat the clock
+            self._timer = None
+            if self._queue:
+                self.n_deadline_flushes += 1
+                self._flush_locked()
 
     # ------------------------------------------------------------ flushing
     def _score(self, groups) -> list:
@@ -246,6 +299,9 @@ class PredictionBroker:
     def _flush_locked(self):
         batch = self._queue
         self._queue = []
+        self._queued_rows = 0
+        self._timer_gen += 1                  # invalidate any pending timer
+        self._timer = None
         try:
             outs = self._score([g for p in batch for g in p.groups])
             at = 0
@@ -262,13 +318,14 @@ class PredictionBroker:
 
     def stats(self) -> dict:
         # deterministic counters only: whether a given flush fired via the
-        # solo bypass or a done()-triggered round depends on thread
-        # interleaving, so n_solo_flushes is read as an attribute instead.
-        # "policy" names the one flush policy the port has, in the JAX
-        # package's schema, so a sweep's perf.broker block matches its bytes
+        # solo bypass or a done()-triggered round (and whether a depth flush
+        # beat its deadline timer) depends on thread interleaving, so the
+        # cause counters (n_solo_flushes / n_deadline_flushes) stay off the
+        # byte-stable SWEEP perf block and are read as attributes instead
         return {"flushes": self.n_flushes, "dispatches": self.n_dispatches,
                 "rows": self.n_rows, "requests": self.n_requests,
-                "max_flush_rows": self.max_flush_rows, "policy": "barrier"}
+                "max_flush_rows": self.max_flush_rows,
+                "policy": self.policy}
 
 
 class BrokerPredictor(TaskPredictor):
@@ -277,11 +334,28 @@ class BrokerPredictor(TaskPredictor):
     producing bit-identical decisions to the per-decision path."""
 
     def __init__(self, *, broker=None, impl: str | None = None,
-                 max_prime_rows: int = 4096, memo_cap: int = 65536, **kw):
+                 max_prime_rows: int = 4096, memo_cap: int = 65536,
+                 fallback_probe_every: int = 64, **kw):
         super().__init__(**kw)
         self.broker = broker
         self.impl = impl
         self.max_prime_rows = max_prime_rows
+        # graceful degradation (paper behavior: when the failure predictor
+        # is unavailable, schedule anyway — never fail the task).  A broker
+        # that stays unreachable past the client's retry budget flips
+        # ``degraded``; degraded flushes answer p=1.0 for every row, which
+        # is exactly the untrained-model semantics: the ATLAS gate passes
+        # and the base scheduler's proposed placement goes through
+        # deterministically.  Every ``fallback_probe_every``-th degraded
+        # flush retries the broker for real (a logical cadence, no wall
+        # clock) and a success clears the degradation.  Only
+        # ``PredictorUnavailableError`` degrades: a scoring error the broker
+        # reports (a kernel that failed to build or launch) stays an error.
+        self.fallback_probe_every = int(fallback_probe_every)
+        self.degraded = False
+        self._probe_countdown = 0
+        self.n_fallbacks = 0
+        self.n_fallback_rows = 0
         # exact-feature memo bound: the memo clears per tick in fleet runs,
         # but a serving-mode predictor (no ticks — e.g. behind the
         # AsyncBroker on an open-loop stream) would otherwise grow it without
@@ -324,10 +398,36 @@ class BrokerPredictor(TaskPredictor):
     # ------------------------------------------------------------ flushing
     def _flush(self, groups) -> list:
         if self.broker is not None:
-            return self.broker.submit(groups)
+            return self._flush_brokered(groups)
         outs, n = score_groups(groups, impl=self.impl, device=self.device)
         self.n_dispatches += n
         self.n_rows_scored += sum(np.asarray(X).shape[0] for _, X in groups)
+        return outs
+
+    def _flush_brokered(self, groups) -> list:
+        if not self.degraded or self._probe_countdown <= 0:
+            try:
+                outs = self.broker.submit(groups)
+                self.degraded = False
+                return outs
+            except PredictorUnavailableError:
+                self.degraded = True
+                self._probe_countdown = self.fallback_probe_every
+        else:
+            self._probe_countdown -= 1
+        return self._fallback(groups)
+
+    def _fallback(self, groups) -> list:
+        """Degraded-mode answer: p=1.0 per row (schedule anyway).  Fallback
+        rows do land in the tick memo, but the memo clears every
+        ``begin_tick``, so stale optimism is bounded to one tick after the
+        broker comes back."""
+        self.n_fallbacks += 1
+        outs = []
+        for _, X in groups:
+            rows = np.asarray(X).shape[0]
+            self.n_fallback_rows += rows
+            outs.append(np.ones(rows, np.float32))
         return outs
 
     def _memoize(self, kind: str, X: np.ndarray, probs: np.ndarray,

@@ -566,3 +566,34 @@ def test_small_sweep_on_the_card_serial_and_broker(dev, tmp_path):
     assert got["perf"]["broker"]["demand_calls"] > 0
     assert launches["serial"]["forest_infer"] > 0
     assert launches["broker"]["forest_infer_grouped"] > 0
+
+
+def test_async_broker_on_the_card_serves_the_mirror(dev):
+    """An AsyncBroker scoring on the card, over inproc:// (live models) and
+    tcp:// (named models): every reply equals the numpy mirror, and the
+    grouped kernel launched once per dispatch the server counted."""
+    from repro_torch.online.server import AsyncBroker, BrokerClient
+    rs = np.random.RandomState(5)
+    models = {"map": SimpleNamespace(params=_forest(rs, 24, 5, 22)),
+              "reduce": SimpleNamespace(params=_forest(rs, 8, 3, 22))}
+    ops.reset_launch_counts()
+    with AsyncBroker(models, policy="vt", device=dev) as server:
+        assert ops.launch_counts()["forest_infer_grouped"] == 0  # warm-up
+        for address in ("", "tcp://127.0.0.1:0"):
+            client = BrokerClient(server.serve(address), server.loop,
+                                  request_timeout_s=120)
+            try:
+                for i in range(24):
+                    kind = ("map", "reduce")[i % 2]
+                    x = rs.rand(1 + (5 * i) % 13, 22).astype(np.float32)
+                    out = (client.submit([(models[kind], x)])[0]
+                           if not address else client.predict(kind, x))
+                    want = np.clip(forest.forest_predict_np(
+                        models[kind].params, x), 0.0, 1.0)
+                    assert np.array_equal(out, want.astype(np.float32))
+            finally:
+                client.close()
+        stats = server.stats()
+    assert stats["requests"] == 48
+    assert ops.launch_counts()["forest_infer_grouped"] \
+        == stats["dispatches"] > 0

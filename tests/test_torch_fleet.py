@@ -5,7 +5,8 @@ package on the CPU.
 The scenario library is pure Python copied from the reference: its draws,
 moves and encodings are held equal.  A sweep's ``SWEEP.json`` is held equal
 to the reference's apart from ``provenance`` (each package stamps its own
-tag), under the serial and broker executors, ``perf.broker`` included.
+tag), under the serial, broker and async executors, ``perf.broker``
+included; a faulted async sweep equals the clean one.
 The kitchen_sink smoke matrix at 100 nodes with ``min_samples=40`` is used
 because its ATLAS cells train and ask for predictions (the reference's
 broker run makes demand calls), so the parity is not vacuous."""
@@ -20,6 +21,7 @@ from repro.cluster import fleet as jfleet
 from repro.cluster import scenarios as jsc
 from repro_torch.cluster import fleet as tfleet
 from repro_torch.cluster import scenarios as tsc
+from repro_torch.online.faults import FaultPlan
 
 CPU = "cpu"
 SMALL = dict(schedulers=("fifo", "atlas-fifo"), seeds=2,
@@ -160,16 +162,16 @@ def reference_sweeps():
     the cost, so it runs once per module)."""
     return {ex: jfleet.run_sweep(jfleet.SweepSpec(**SMALL), executor=ex,
                                  log=_quiet)
-            for ex in ("serial", "broker")}
+            for ex in ("serial", "broker", "async")}
 
 
-@pytest.mark.parametrize("executor", ["serial", "broker"])
+@pytest.mark.parametrize("executor", ["serial", "broker", "async"])
 def test_sweep_json_matches_reference(reference_sweeps, executor):
     ref = reference_sweeps[executor]
     got = tfleet.run_sweep(tfleet.SweepSpec(**SMALL), executor=executor,
                            device=CPU, log=_quiet)
     assert _without_provenance(got) == _without_provenance(ref)
-    if executor == "broker":
+    if executor != "serial":
         assert ref["perf"]["broker"]["demand_calls"] > 0
         assert got["perf"] == ref["perf"]
     atlas = [c for c in got["cells"] if c["scheduler"] == "atlas-fifo"]
@@ -218,13 +220,71 @@ def test_cli_writes_the_sweep(tmp_path):
     assert tfleet.main(["--scenarios", "nope", "--device", "cpu"]) == 2
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(executor="async"), "online/server.py"),
-    (dict(obs_dir="obs"), "obs/"),
-    (dict(obs_live="tcp://localhost:1"), "obs/"),
-    (dict(fault_plan=object(), executor="async"), "online/faults.py"),
-], ids=["async", "obs_dir", "obs_live", "faults"])
-def test_unported_paths_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what.replace(".", r"\.")):
+# the fault plan of the JAX package's own faulted-sweep test, with twice
+# its request timeout: a round that waits on a busy test machine should
+# retry, not run out of attempts
+CHAOS_PLAN = FaultPlan(seed=7, drop=0.15, delay=0.05, delay_s=(0.0, 0.005),
+                       duplicate=0.1, restart_after=(40,), max_events=24,
+                       request_timeout_s=0.5, deadline_s=120.0)
+
+
+def test_async_sweep_equals_the_broker_sweep_bytes():
+    spec = tfleet.SweepSpec(**SMALL)
+    stats = {}
+    asynced = tfleet.run_sweep(spec, executor="async", device=CPU,
+                               fault_stats=stats, log=_quiet)
+    brokered = tfleet.run_sweep(spec, executor="broker", device=CPU,
+                                log=_quiet)
+    # full equality, perf.broker included: same rounds, same counts
+    assert tfleet.sweep_json(asynced) == tfleet.sweep_json(brokered)
+    assert stats["fallbacks"] == 0 and stats["client_retries"] == 0
+    assert stats["injected"]["events"] == 0
+    assert stats["max_request_wait_s"] > 0.0
+
+
+def test_faulted_async_sweep_equals_the_clean_one():
+    spec = tfleet.SweepSpec(**SMALL)
+    clean = tfleet.run_sweep(spec, executor="async", device=CPU, log=_quiet)
+    stats = {}
+    faulted = tfleet.run_sweep(spec, executor="async", device=CPU,
+                               fault_plan=CHAOS_PLAN, fault_stats=stats,
+                               log=_quiet)
+    assert tfleet.sweep_json(faulted) == tfleet.sweep_json(clean)
+    assert stats["injected"]["events"] > 0
+    assert stats["injected"]["restarts"] == 1
+    assert stats["client_retries"] > 0
+    assert stats["fallbacks"] == 0       # degraded-free: parity is meaningful
+
+
+@pytest.mark.parametrize("executor", ["serial", "broker", "thread"])
+def test_fault_plan_needs_the_async_executor(executor):
+    with pytest.raises(ValueError, match="async"):
+        tfleet.run_sweep(tfleet.SweepSpec(**SMALL), executor=executor,
+                         fault_plan=FaultPlan(), device=CPU, log=_quiet)
+
+
+def test_cli_async_with_faults_writes_fault_stats(tmp_path):
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps(CHAOS_PLAN.to_dict()))
+    common = ["--schedulers", "fifo,atlas-fifo", "--seeds", "1",
+              "--scenarios", "kitchen_sink", "--workloads", "smoke",
+              "--fleet-size", "100", "--min-samples", "40",
+              "--device", "cpu"]
+    out = tmp_path / "out"
+    assert tfleet.main([*common, "--executor", "async", "--faults",
+                        str(plan), "--out", str(out)]) == 0
+    faults = json.loads((out / "FAULTS.json").read_text())
+    assert faults["fallbacks"] == 0 and faults["injected"]["events"] > 0
+    result = json.loads((out / "SWEEP.json").read_text())
+    assert result["perf"]["broker"]["policy"] == "barrier"
+    assert tfleet.main([*common, "--executor", "serial", "--faults",
+                        str(plan), "--out", str(tmp_path / "bad")]) == 2
+
+
+@pytest.mark.parametrize("kw", [
+    dict(obs_dir="obs"), dict(obs_live="tcp://localhost:1"),
+], ids=["obs_dir", "obs_live"])
+def test_unported_paths_raise(kw):
+    with pytest.raises(NotImplementedError, match="obs/"):
         tfleet.run_sweep(tfleet.SweepSpec(**SMALL), device=CPU, log=_quiet,
                          **kw)

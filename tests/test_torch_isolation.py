@@ -23,6 +23,7 @@ from repro_torch.ml import forest as tforest
 from repro_torch.ml import models
 from repro_torch.ml.cv import cross_validate
 from repro_torch.online.broker import BrokerPredictor, PredictionBroker
+from repro_torch.online.server import AsyncBroker
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -56,6 +57,26 @@ X = np.random.RandomState(0).rand(60, 3).astype(np.float32)
 for algo in ("Glm", "N.N."):
     cross_validate(algo, X, (X[:, 0] > 0.5).astype(np.float32), k=2,
                    device="cpu")
+from repro_torch.ml.models import ALL_MODELS
+from repro_torch.online.server import AsyncBroker, BrokerClient
+model = ALL_MODELS["R.F."](device="cpu").fit(X, (X[:, 0] > 0.5).astype(
+    np.float32))
+with AsyncBroker({"map": model}, device="cpu") as server:
+    for address in ("", "tcp://127.0.0.1:0"):
+        client = BrokerClient(server.serve(address), server.loop,
+                              request_timeout_s=60)
+        try:
+            assert np.array_equal(client.predict("map", X[:3]),
+                                  model.predict_proba(X[:3]))
+            (served,) = client.submit([(model, X[3:5])]) if not address \
+                else (client.predict("map", X[3:5]),)
+            assert np.array_equal(served, model.predict_proba(X[3:5]))
+        finally:
+            client.close()
+    assert server.stats()["requests"] == 4
+asynced = run_sweep(SweepSpec(workloads=("smoke",), seeds=1, min_samples=40),
+                    executor="async", device="cpu", log=lambda *a: None)
+assert asynced["perf"] == sweep["perf"]
 leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
@@ -129,6 +150,7 @@ def no_cuda(monkeypatch):
     lambda: TaskPredictor(),
     lambda: BrokerPredictor(),
     lambda: PredictionBroker(),
+    lambda: AsyncBroker(),
     lambda: tforest.fit_oblivious_forest(np.ones((4, 2), np.float32),
                                          np.ones(4, np.float32)),
     lambda: models.GLM(),
@@ -140,7 +162,7 @@ def no_cuda(monkeypatch):
     lambda: search.run_search(search.SearchConfig(budget=1),
                               log=lambda *a: None),
 ], ids=["resolve_none", "resolve_cuda", "TaskPredictor", "BrokerPredictor",
-        "PredictionBroker", "fit_oblivious_forest", "GLM", "NeuralNet",
+        "PredictionBroker", "AsyncBroker", "fit_oblivious_forest", "GLM", "NeuralNet",
         "cross_validate", "run_sweep", "run_search"])
 def test_defaults_raise_without_gpu(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
