@@ -134,6 +134,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
            forest_infer_grouped once per flush dispatch; rows/s, open-loop
            p50/p95/p99 and SLO violations, whether the CLI's tail budget
            held, the tcp serializer
+  obs      the telemetry layer, after serve_async: (a) compare("fifo") on
+           the slice's config with obs_path, on the card: metrics apart
+           from "obs" equal slice's, exactly 1,681 forest_infer launches
+           (the last ATLAS frame's predictor dispatches too), both frame
+           files byte-equal to the same run's on the CPU (spawned
+           alongside); (b) serve_async's spec through the broker executor
+           with obs_dir and the async executor with obs_dir and obs_live
+           to a separate python -m repro_torch.obs.live process, /delta
+           polled mid-run: SWEEP.json without perf.obs equal to
+           serve_async's broker bytes, every cell a source with frames on
+           /snapshot, the polled seqs gapless, their replay through a fresh
+           TelemetryCollector equal to the live aggregates, observed
+           flushes = forest_infer_grouped launches = dispatches; the flush
+           wall latency (p50, p99) and row histograms; (c)
+           benchmarks/obs_overhead.py's paired-median CPU-time estimator on
+           the 1000-node ATLAS run, in a spawned process of its own as the
+           benchmark runs: the NDJSON sink gated at 5 % (9 pairs, any of 3
+           attempts), the live tcp sink's overhead recorded, not gated
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.
@@ -290,6 +308,14 @@ OPEN_CONFIGS = ("inproc_bursty", "inproc_poisson", "tcp_poisson")
 SEARCH_SMOKE = dict(budget=8, seeds=1, fleet_size=20, scenario="baseline",
                     workload="smoke", executor="serial",
                     check_invariants=True, min_samples=40, max_train=2000)
+# obs: benchmarks/obs_overhead.py's paired-median CPU-time estimator and its
+# gate (a 5 % budget, passed if any of 3 attempts lands inside it), on the
+# 1000-node ATLAS run without invariant checking: the benchmark's 9 off/on
+# pairs per attempt for the gated NDJSON sink, 3 for the live sink (recorded
+# only), cut for time
+OBS_BUDGET = 0.05
+OBS_ATTEMPTS = 3
+OBS_PAIRS = {"ndjson": 9, "live_tcp": 3}
 
 RECORDS: list = []
 
@@ -799,8 +825,8 @@ def phase_slice(torch, dev, cfg, base_metrics, trained):
     The launch counts are zeroed before each run and read after it: the
     scalar path (compare) must launch forest_infer and the brokered run
     forest_infer_grouped, exactly SCALAR_LAUNCHES and BROKER_LAUNCHES
-    times.  Returns the launches and the brokered run's mean rows per
-    flush."""
+    times.  Returns the launches, the brokered run's mean rows per flush
+    and compare's result."""
     from repro_torch.cluster.experiment import compare, run_scheduler
     from repro_torch.kernels import ops
     from repro_torch.online.broker import BrokerPredictor
@@ -860,7 +886,8 @@ def phase_slice(torch, dev, cfg, base_metrics, trained):
           "invariant_checks": atlas["invariant_checks"]})
     launches = {"forest_infer": launches_compare["forest_infer"],
                 "forest_infer_grouped": launches_broker["forest_infer_grouped"]}
-    return launches, round(served["broker"]["rows"] / BROKER_LAUNCHES)
+    return (launches, round(served["broker"]["rows"] / BROKER_LAUNCHES),
+            result)
 
 
 def phase_parity(torch, dev):
@@ -1914,7 +1941,8 @@ def phase_serve_async(torch, dev, smi) -> dict:
     perf.broker equal across (a)-(c), faults injected and retried with no
     fallback, every probability the card runs served equal to the numpy
     mirror, and the grouped kernel launched once per server dispatch.
-    Returns the clean async run's forest launches."""
+    Returns the clean async run's forest launches and the broker run's
+    result."""
     import concurrent.futures
     import multiprocessing
     from repro_torch.cluster.fleet import SweepSpec, run_sweep
@@ -1990,7 +2018,358 @@ def phase_serve_async(torch, dev, smi) -> dict:
           "atlas_stats": {c["cell_id"]: c["stats"] for c in first["cells"]
                           if c["scheduler"] != "fifo"},
           "log": logs})
-    return launches["async"]
+    return launches["async"], first
+
+
+def _cpu_compare(cfg, obs_path: str) -> dict:
+    """compare("fifo") with telemetry on the CPU, in a process of its own so
+    that it overlaps the card runs."""
+    import torch
+    from repro_torch.cluster.experiment import compare
+    torch.set_num_threads(2)
+    return compare("fifo", dataclasses.replace(cfg, device="cpu",
+                                               obs_path=obs_path))
+
+
+class _DeltaPoller:
+    """Chains ``/delta?since=<seq>`` on a live server while a run streams
+    to it (benchmarks/live_overhead.py's poller): every entry once, the
+    number of polls and resync replies."""
+
+    def __init__(self, base_url: str):
+        import threading
+        self.base = base_url
+        self.entries: list = []
+        self.polls = 0
+        self.resyncs = 0
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="delta-poller")
+
+    def poll(self):
+        since = self.entries[-1]["seq"] if self.entries else 0
+        r = _get_json(f"{self.base}/delta?since={since}")
+        self.polls += 1
+        self.resyncs += bool(r.get("resync"))
+        self.entries.extend(r["frames"])
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                self.poll()
+                time.sleep(0.05)
+        except Exception as e:          # surfaced by stop()
+            self.error = e
+
+    def start(self) -> "_DeltaPoller":
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        check(self.error is None, f"obs: the /delta poller failed: "
+              f"{self.error!r}")
+        self.poll()                     # the last entries, after the run
+
+
+def _get_json(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.load(r)
+
+
+def _settle(seq, timeout=60.0):
+    """Wait until ``seq()`` stops moving (every frame the producers sent
+    has been folded) or ``timeout`` passes."""
+    deadline = time.time() + timeout
+    last = seq()
+    while time.time() < deadline:
+        time.sleep(0.25)
+        now = seq()
+        if now == last:
+            return now
+        last = now
+    return last
+
+
+def _device_name(torch, dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _overhead_child_ready(device: str) -> str:
+    """Ready a fresh process for _obs_overhead: torch, the device and, on
+    the card, the kernel library (no launch)."""
+    import torch
+    from repro_torch.ml.forest import warm_up
+    dev = torch.device(device)
+    warm_up(dev)
+    return _device_name(torch, dev)
+
+
+def _obs_overhead(cfg, snap: dict, sink: str, target: str, pairs: int,
+                  gated: bool, device: str, warm: bool = True) -> dict:
+    """benchmarks/obs_overhead.py's estimator on the card's ATLAS run, in a
+    process of its own as the benchmark runs (the long chip_smoke process's
+    heap and threads stay out of the CPU times): off/on pairs back to back,
+    the order alternating pair to pair, each sample timed by
+    time.process_time after a gc.collect(); the overhead is the median of
+    the per-pair deltas over the median off time.  Up to OBS_ATTEMPTS
+    attempts; a gated measurement stops at the first within OBS_BUDGET (the
+    caller checks the best).  ``sink`` "ndjson" streams the on-runs' frames
+    to files under the directory ``target``, "live_tcp" to the collector at
+    the address ``target``; the predictor scores on ``device``; ``warm``
+    runs one off and one on sample first.  The on and off runs' metrics
+    must be equal.
+    Each pair's CPU seconds and full garbage collections are kept."""
+    import gc
+    import torch
+    from repro_torch.cluster.experiment import run_scheduler
+    from repro_torch.core.predictor import TaskPredictor
+    dev = torch.device(device)
+    counter = iter(range(1 << 30))
+
+    def sample(on: bool):
+        pred = TaskPredictor(**_predictor_kw(cfg), device=dev)
+        pred.load_snapshot(snap)
+        run_cfg = cfg
+        if on and sink == "ndjson":
+            run_cfg = dataclasses.replace(
+                cfg, obs_path=f"{target}/{next(counter)}.ndjson")
+        elif on:
+            run_cfg = dataclasses.replace(cfg, obs_live_addr=target,
+                                          obs_source=f"overhead_"
+                                          f"{next(counter)}")
+        gc.collect()
+        full = gc.get_stats()[2]["collections"]
+        t0 = time.process_time()
+        metrics, _, _ = run_scheduler("atlas-fifo", run_cfg, pred)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (time.process_time() - t0, metrics,
+                gc.get_stats()[2]["collections"] - full)
+
+    if warm:
+        sample(False)                               # warm both sides
+        sample(True)
+    attempts = []
+    for _ in range(OBS_ATTEMPTS):
+        offs, deltas, detail = [], [], []
+        for k in range(pairs):
+            if k % 2 == 0:
+                off, m_off, g_off = sample(False)
+                on, m_on, g_on = sample(True)
+            else:
+                on, m_on, g_on = sample(True)
+                off, m_off, g_off = sample(False)
+            offs.append(off)
+            deltas.append(on - off)
+            detail.append({"off_s": off, "on_s": on,
+                           "full_gc": [g_off, g_on]})
+        check({k: v for k, v in m_on.items() if k != "obs"} == m_off,
+              "obs: telemetry changed the ATLAS run's results")
+        base, added = statistics.median(offs), statistics.median(deltas)
+        attempts.append({"seconds_off": base, "added_ms": added * 1e3,
+                         "overhead_frac": added / base,
+                         "frames": m_on["obs"]["frames"], "pairs": detail})
+        if not gated or attempts[-1]["overhead_frac"] <= OBS_BUDGET:
+            break
+    best = min(attempts, key=lambda a: a["overhead_frac"])
+    return {**{k: v for k, v in best.items() if k != "pairs"},
+            "attempts": [a["overhead_frac"] for a in attempts],
+            "samples": [a["pairs"] for a in attempts], "pairs": pairs,
+            "budget_frac": OBS_BUDGET if gated else None}
+
+
+def _flush_latency(path) -> dict:
+    """The broker's flush wall latency (p50, p99) and its histogram from
+    its per-flush frames, through a BrokerObserver that keeps them all."""
+    from repro_torch.obs import BrokerObserver, read_ndjson
+    frames = read_ndjson(path)
+    obs = BrokerObserver(latency_ring=max(len(frames), 1))
+    for f in frames:
+        obs.record_flush(f["rows"], f["requests"], f["dispatches"],
+                         f["latency_ms"] / 1e3)
+    summary = obs.summary()
+    return {"flushes": len(frames),
+            "flush_latency_ms": summary["flush_latency_ms"],
+            "flush_latency_hist_ms": summary["flush_latency_hist_ms"],
+            "flush_rows_hist": summary["flush_rows_hist"],
+            "flush_rows_p50": summary["flush_rows_p50"]}
+
+
+def phase_obs(torch, dev, smi, cfg, slice_result, trained,
+              serve_async_broker) -> dict:
+    """The telemetry layer on the card.  (a) compare("fifo") on the slice's
+    config with obs_path: metrics apart from "obs" equal the slice phase's,
+    exactly SCALAR_LAUNCHES forest_infer launches, the last ATLAS frame's
+    predictor dispatches equal to them, and both frame files byte-equal to
+    the same run's on the CPU (in a spawned process alongside).  (b) the
+    serve_async spec through the broker executor with obs_dir and the
+    async executor with obs_dir and obs_live to a separate
+    ``python -m repro_torch.obs.live`` process, a poller chaining /delta
+    mid-run: SWEEP.json without perf.obs equal to serve_async's broker
+    bytes, every cell a source with frames on /snapshot, the polled seqs
+    gapless, their replay through a fresh TelemetryCollector equal to the
+    live aggregates, and the BrokerObserver's flushes equal to the grouped
+    kernel's launches and the server's dispatches; the flush wall latency
+    and row histograms.  (c) the NDJSON sink's overhead on the ATLAS run,
+    gated at OBS_BUDGET, and the live tcp sink's beside it, not gated, in
+    a process of its own (spawned at the start, readied during (a) and
+    (b)).
+    Returns the forest launches of (a) and (b)."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.cluster.experiment import compare
+    from repro_torch.cluster.fleet import SweepSpec, run_sweep, sweep_json
+    from repro_torch.kernels import ops
+    from repro_torch.obs import TelemetryCollector, read_ndjson
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    consumer = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.obs.live", "--device", str(dev),
+         "--listen", "tcp://127.0.0.1:0", "--http", "127.0.0.1:0"],
+        stdout=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    overhead_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        overhead_ready = overhead_pool.submit(_overhead_child_ready,
+                                              str(dev))
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            cpu_run = pool.submit(_cpu_compare, cfg,
+                                  str(tmp / "cpu" / "slice.ndjson"))
+            # (a)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = compare("fifo", dataclasses.replace(
+                cfg, obs_path=str(tmp / "card" / "slice.ndjson")))
+            torch.cuda.synchronize()
+            t_compare = time.perf_counter() - t0
+            launches_a = _forest_launches(torch)
+            check(launches_a["forest_infer"] == SCALAR_LAUNCHES,
+                  f"obs: compare launched forest_infer "
+                  f"{launches_a['forest_infer']} times, not "
+                  f"{SCALAR_LAUNCHES}")
+            for run in ("base", "atlas"):
+                check({k: v for k, v in result[run].items() if k != "obs"}
+                      == slice_result[run], f"obs: compare's {run} metrics "
+                      "differ from the slice phase's")
+            check(result["deltas"] == slice_result["deltas"],
+                  "obs: compare's deltas differ from the slice phase's")
+            atlas_frames = read_ndjson(tmp / "card" / "slice__atlas.ndjson")
+            last = [f for f in atlas_frames if f["type"] == "frame"][-1]
+            check(last["pred"]["dispatches"] == SCALAR_LAUNCHES,
+                  f"obs: the last frame counts {last['pred']['dispatches']}"
+                  f" predictor dispatches, not {SCALAR_LAUNCHES}")
+            # (b); the consumer's address is read after the broker run,
+            # which overlaps its start-up
+            spec = SweepSpec(**SERVE_ASYNC)
+            want = sweep_json(serve_async_broker)
+            runs, walls, launches_b, flush_lat = {}, {}, {}, {}
+            addrs, poller = {}, None
+            for name in ("broker", "async"):
+                obs_dir = tmp / name
+                kw = dict(executor=name)
+                if name == "async":
+                    addrs = json.loads(consumer.stdout.readline())
+                    kw["obs_live"] = addrs["listen"]
+                    poller = _DeltaPoller(addrs["http"]).start()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                runs[name] = run_sweep(spec, device=dev, obs_dir=str(obs_dir),
+                                       log=lambda *a, **k: None, **kw)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                launches_b[name] = _forest_launches(torch)
+                block = runs[name]["perf"].pop("obs")
+                check(sweep_json(runs[name]) == want, f"obs {name}: "
+                      "SWEEP.json without perf.obs != serve_async's bytes")
+                cell_ids = {c["cell_id"] for c in runs[name]["cells"]}
+                check(set(block["cells"]) == cell_ids,
+                      f"obs {name}: a cell without a roll-up")
+                flushes = block["broker"]["broker.flushes"]
+                dispatches = runs[name]["perf"]["broker"]["dispatches"]
+                grouped = launches_b[name]["forest_infer_grouped"]
+                check(flushes == grouped == dispatches > 0,
+                      f"obs {name}: {flushes} observed flushes, {grouped} "
+                      f"grouped launches, {dispatches} dispatches")
+                flush_lat[name] = _flush_latency(obs_dir / "broker.ndjson")
+                check(flush_lat[name]["flushes"] == flushes,
+                      f"obs {name}: broker.ndjson frames != flushes")
+                runs[name]["perf"]["obs"] = block
+            seq = _settle(lambda: _get_json(addrs["http"] + "/snapshot")
+                          ["seq"])
+            poller.stop()
+            snap = _get_json(addrs["http"] + "/snapshot")
+            check(snap["seq"] == seq, "obs: frames still arriving")
+            sources = {n: a["frames"] for n, a in snap["aggregates"].items()}
+            check(set(sources) == cell_ids and all(sources.values()),
+                  f"obs: /snapshot sources {sources} != the cells {cell_ids}")
+            seqs = [e["seq"] for e in poller.entries]
+            check(poller.resyncs == 0 and seqs == list(range(1, seq + 1)),
+                  f"obs: polled deltas not gapless ({len(seqs)} entries, "
+                  f"{poller.resyncs} resyncs, seq {seq})")
+            replay = TelemetryCollector()
+            for e in poller.entries:
+                replay.ingest(e["frame"], source=e["source"])
+            check(json.loads(json.dumps(replay.aggregates()))
+                  == snap["aggregates"],
+                  "obs: the polled deltas' replay != the live aggregates")
+            t0 = time.perf_counter()
+            cpu_result = cpu_run.result()
+            waited_cpu = time.perf_counter() - t0
+        check(cpu_result == result, "obs: card compare != CPU compare")
+        for run in ("base", "atlas"):
+            name = f"slice__{run}.ndjson"
+            check((tmp / "card" / name).read_bytes()
+                  == (tmp / "cpu" / name).read_bytes(),
+                  f"obs: the card's {name} != the CPU's")
+        t_ab = time.perf_counter() - t_phase
+        # (c), in the process readied during (a) and (b)
+        check(overhead_ready.result() == _device_name(torch, dev),
+              "obs: the overhead process sees another device")
+        run_cfg = dataclasses.replace(cfg, check_invariants=False,
+                                      device=None)
+        weights = trained.snapshot()
+        (tmp / "overhead").mkdir()
+        ndjson = overhead_pool.submit(
+            _obs_overhead, run_cfg, weights, "ndjson", str(tmp / "overhead"),
+            OBS_PAIRS["ndjson"], True, str(dev)).result()
+        check(ndjson["overhead_frac"] <= OBS_BUDGET,
+              f"obs: the NDJSON sink costs {ndjson['overhead_frac']:.2%} of "
+              f"the ATLAS run in all {len(ndjson['attempts'])} attempts "
+              f"(budget {OBS_BUDGET:.0%})")
+        live = overhead_pool.submit(
+            _obs_overhead, run_cfg, weights, "live_tcp", addrs["listen"],
+            OBS_PAIRS["live_tcp"], False, str(dev), False).result()
+    finally:
+        overhead_pool.shutdown(cancel_futures=True)
+        consumer.terminate()
+        consumer.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "obs", "nvidia_smi": smi, "fleet_size": FLEET,
+          "compare_s": t_compare, "cpu_compare_waited_s": waited_cpu,
+          "frames": {run: result[run]["obs"] for run in ("base", "atlas")},
+          "frames_equal_cpu": True, "launches_compare": launches_a,
+          "sweep": {"spec": runs["broker"]["spec"], "wall_s": walls,
+                    "launches": launches_b,
+                    "perf_obs_broker": runs["broker"]["perf"]["obs"]
+                    ["broker"], "flush": flush_lat,
+                    "sweep_equal_serve_async": True},
+          "live": {"sources": sources, "seq": seq,
+                   "polls": poller.polls, "delta_entries": len(seqs),
+                   "frames_per_s": snap["health"]["frames_per_s"],
+                   "gapless": True, "replay_equal": True},
+          "overhead": {"ndjson": ndjson, "live_tcp": live},
+          "phase_s": {"a_b": t_ab, "total": time.perf_counter() - t_phase}})
+    return {k: launches_a[k] + launches_b["broker"][k]
+            + launches_b["async"][k] for k in FOREST_KERNELS}
 
 
 def phase_online_bench(torch, dev, smi) -> dict:
@@ -2177,7 +2556,8 @@ def main(argv=None) -> int:
     build = phase_build()
     timing = phase_kernels(torch, dev)
     cfg, base, trained, fit_data = phase_fit(torch, dev)
-    launches, flush_rows = phase_slice(torch, dev, cfg, base, trained)
+    launches, flush_rows, slice_result = phase_slice(torch, dev, cfg, base,
+                                                     trained)
     for k, rec in phase_flush_kernels(torch, dev, flush_rows).items():
         timing[k][flush_rows] = rec
     main_rows = {"forest_infer": 13, "forest_infer_grouped": flush_rows}
@@ -2200,7 +2580,10 @@ def main(argv=None) -> int:
     by_path.update(phase_sweep(torch, dev, smi))
     by_path["drift"] = phase_drift(torch, dev, smi)
     by_path["search"] = phase_search(torch, dev, smi)
-    by_path["serve_async"] = phase_serve_async(torch, dev, smi)
+    by_path["serve_async"], serve_async_broker = phase_serve_async(
+        torch, dev, smi)
+    by_path["obs"] = phase_obs(torch, dev, smi, cfg, slice_result, trained,
+                               serve_async_broker)
     by_path["online_bench"] = phase_online_bench(torch, dev, smi)
     kernels = []
     for k in FOREST_KERNELS:

@@ -16,7 +16,10 @@ tree and public names and imports nothing from it.  Ported so far:
   online/      the batched prediction broker, the model registry, the
                drift-aware refresher, the transport, the AsyncBroker
                service with fault injection, and the load bench.
-  configs/     the model zoo's ten arch configs and shapes.
+  obs/         telemetry: the metrics core, simulator and broker observers,
+               NDJSON / transport sinks, the live collector and HTTP
+               server, and the HTML dashboards.
+  configs/    the model zoo's ten arch configs and shapes.
   parallel/    parameter definitions with logical axes; seeded init.
   models/      the dense, ssm (RWKV6) and hybrid (Mamba2 + shared
                attention) LMs (layers, prefill, cached decode) and the

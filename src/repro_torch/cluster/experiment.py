@@ -8,9 +8,9 @@
   4. compare metrics (Figures 4-12, Table 4).
 
 The predictor fits and scores on ``ExperimentConfig.device`` (CUDA unless
-told otherwise).  Live telemetry (``obs_path`` / ``obs_live_addr``) needs
-the ``obs/`` package, which is not ported yet, and raises
-``NotImplementedError``.
+told otherwise).  Live telemetry (``obs_path`` / ``obs_live_addr``) streams
+the same per-tick frames as the JAX package's, on any device: observers read
+simulator state only, so results are equal with telemetry on or off.
 """
 
 from __future__ import annotations
@@ -46,10 +46,18 @@ class ExperimentConfig:
     # fleet-size scale axis: 0 = the paper's 13-slave EMR fleet, N = an
     # N-node fleet cycling the same machine mix (simulator.make_fleet)
     fleet_size: int = 0
-    # live telemetry to an NDJSON file / over the serving transport (obs/,
-    # not yet ported: setting either raises)
+    # live telemetry (repro_torch.obs): when obs_path is set each run streams
+    # per-tick NDJSON frames there and metrics gain a deterministic "obs"
+    # roll-up.  Observers only read sim state, so results are byte-identical
+    # with telemetry on or off.
     obs_path: str | None = None
+    obs_frame_every: float = 60.0
+    # live telemetry wire: stream the same frames to a serving AsyncBroker /
+    # TelemetryCollector over inproc:// or tcp:// (obs.TransportSink).
+    # obs_source names this run on the wire (fleet uses the cell id).  The
+    # live path observes, never perturbs: results stay byte-identical.
     obs_live_addr: str | None = None
+    obs_source: str | None = None
     # per-tick invariant checking (cluster.invariants): violations are
     # recorded (never raised) and surface in metrics["invariant_violations"];
     # the checker only reads sim state, so decisions are unchanged
@@ -63,15 +71,30 @@ def _fleet_for(cfg: "ExperimentConfig"):
     return make_fleet(cfg.fleet_size) if cfg.fleet_size else None
 
 
-def _check_ported(cfg: ExperimentConfig):
-    if cfg.obs_path or cfg.obs_live_addr:
-        raise NotImplementedError(
-            "live telemetry (obs_path / obs_live_addr) needs the obs/ "
-            "package, which repro_torch has not ported yet")
+def _make_obs(cfg: ExperimentConfig):
+    if not cfg.obs_path and not cfg.obs_live_addr:
+        return None
+    from repro_torch.obs import NDJSONSink, SimObserver, TeeSink, TransportSink
+    from repro_torch.obs.sink import telemetry_loop
+    sinks = []
+    if cfg.obs_path:
+        sinks.append(NDJSONSink(cfg.obs_path))
+    if cfg.obs_live_addr:
+        # tcp sinks share the process loop and batch frames per send:
+        # per-run thread churn and per-frame send round-trips would both
+        # land inside the telemetry overhead budget.  reconnect=True: a
+        # collector crash/restart mid-run must read as a telemetry gap
+        # (bounded buffer + backoff re-dial), never as a failed simulation
+        loop = (telemetry_loop()
+                if cfg.obs_live_addr.startswith("tcp://") else None)
+        sinks.append(TransportSink(cfg.obs_live_addr, loop=loop,
+                                   source=cfg.obs_source, flush_every=8,
+                                   reconnect=True, max_buffer=4096))
+    return SimObserver(sink=sinks[0] if len(sinks) == 1 else TeeSink(*sinks),
+                       frame_every=cfg.obs_frame_every)
 
 
 def _new_sim(scheduler, cfg: ExperimentConfig, trace) -> Simulator:
-    _check_ported(cfg)
     invariants = None
     if cfg.check_invariants:
         from repro_torch.cluster.invariants import InvariantChecker
@@ -79,7 +102,8 @@ def _new_sim(scheduler, cfg: ExperimentConfig, trace) -> Simulator:
     sim = Simulator(scheduler, fleet=_fleet_for(cfg), seed=cfg.seed,
                     heartbeat_interval=cfg.heartbeat_interval,
                     chaos=ChaosInjector(cfg.chaos), trace=trace,
-                    hazard_noise=cfg.hazard_noise, invariants=invariants)
+                    hazard_noise=cfg.hazard_noise, obs=_make_obs(cfg),
+                    invariants=invariants)
     install(sim, make_workload(cfg.workload))
     return sim
 
@@ -87,7 +111,10 @@ def _new_sim(scheduler, cfg: ExperimentConfig, trace) -> Simulator:
 def run_baseline(name: str, cfg: ExperimentConfig, *, with_trace=True):
     trace = TelemetryTrace() if with_trace else None
     sim = _new_sim(BASELINES[name](), cfg, trace)
-    return sim.run(), trace, sim
+    metrics = sim.run()
+    if sim.obs is not None:
+        metrics["obs"] = sim.obs.summary()
+    return metrics, trace, sim
 
 
 def run_atlas(name: str, cfg: ExperimentConfig,
@@ -107,8 +134,12 @@ def run_atlas(name: str, cfg: ExperimentConfig,
         threshold=cfg.threshold, n_speculative=cfg.n_speculative,
         retrain_every=cfg.retrain_every, refresher=refresher)
     sim = _new_sim(sched, cfg, trace)
+    if refresher is not None and sim.obs is not None:
+        refresher.obs = sim.obs        # drift/lifecycle markers into frames
     metrics = sim.run()
     metrics["atlas"] = sched.stats().to_dict()
+    if sim.obs is not None:
+        metrics["obs"] = sim.obs.summary()
     return metrics, trace, sim
 
 
@@ -187,12 +218,26 @@ def _matched_long_job_times(sim_a, sim_b, quantile: float = 0.75):
 
 def compare(name: str, cfg: ExperimentConfig) -> dict:
     """Full §5 protocol for one base scheduler.  Returns {base, atlas, deltas}."""
-    base_metrics, train_trace, base_sim = run_baseline(name, cfg)
+    base_cfg, atlas_cfg = cfg, cfg
+    if cfg.obs_path:                 # two runs: split the frame streams
+        import pathlib
+        p = pathlib.Path(cfg.obs_path)
+        suffix = p.suffix or ".ndjson"
+        base_cfg = dataclasses.replace(
+            cfg, obs_path=str(p.with_name(f"{p.stem}__base{suffix}")))
+        atlas_cfg = dataclasses.replace(
+            cfg, obs_path=str(p.with_name(f"{p.stem}__atlas{suffix}")))
+    if cfg.obs_live_addr:            # distinct wire sources per run too
+        src = cfg.obs_source or name
+        base_cfg = dataclasses.replace(base_cfg, obs_source=f"{src}__base")
+        atlas_cfg = dataclasses.replace(atlas_cfg,
+                                        obs_source=f"{src}__atlas")
+    base_metrics, train_trace, base_sim = run_baseline(name, base_cfg)
     predictor = TaskPredictor(algo=cfg.algo, seed=cfg.seed,
                               min_samples=cfg.min_samples,
                               max_train=cfg.max_train, device=cfg.device)
     predictor.fit(train_trace)
-    atlas_metrics, _, atlas_sim = run_atlas(name, cfg, predictor)
+    atlas_metrics, _, atlas_sim = run_atlas(name, atlas_cfg, predictor)
     mt_base, mt_atlas = _matched_job_times(base_sim, atlas_sim)
     base_metrics["job_exec_time_matched"] = mt_base
     atlas_metrics["job_exec_time_matched"] = mt_atlas

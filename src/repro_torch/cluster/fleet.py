@@ -47,10 +47,15 @@ Design points:
   unless told otherwise; ``--device cpu`` on the CPU).  The device is not a
   ``SweepSpec`` field: the spec is written into ``SWEEP.json``, whose bytes
   do not depend on it.
-
-The JAX package's live telemetry (``--obs``, ``--obs-live``) needs
-``obs/``, which is not ported yet; asking for it raises
-``NotImplementedError``.
+* **Live telemetry.**  ``--obs`` streams per-cell NDJSON frame files
+  (``repro_torch.obs``) under ``<out>/obs/`` and stamps each cell's
+  deterministic telemetry roll-up into ``SWEEP.json`` under ``perf.obs``
+  (with the broker and async executors, the serving broker's flush
+  roll-up too, and its per-flush frames in ``<out>/obs/broker.ndjson``).
+  ``--obs-live ADDR`` streams every cell's frames to a live
+  ``TelemetryCollector`` (``python -m repro_torch.obs.live``).  Simulation
+  results stay byte-identical with telemetry on or off: observers only read
+  sim state and the roll-ups carry no wall-clock.
 
 CLI:
 
@@ -59,7 +64,7 @@ CLI:
       --scenarios baseline,bursty_tt,dn_loss [--workloads default] \
       [--executor process|thread|serial|broker|async] [--workers N] \
       [--hazard cluster|per-node] [--registry DIR] [--faults PLAN.json] \
-      [--device cpu] [--out experiments]
+      [--obs] [--obs-live ADDR] [--device cpu] [--out experiments]
 """
 
 from __future__ import annotations
@@ -86,11 +91,6 @@ from repro_torch.kernels.ops import resolve_device
 TABLE_METRICS = ("pct_tasks_failed", "pct_jobs_failed", "job_exec_time",
                  "sim_time")
 EXECUTORS = ("process", "thread", "serial", "broker", "async")
-
-
-def _not_ported(what: str, module: str):
-    raise NotImplementedError(f"{what} needs {module}, which repro_torch has "
-                              "not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +265,8 @@ def _run_base_cell(args):
             payload = ("registry", name, version)
         else:
             payload = ("datasets", datasets)
-    return cell, _numeric_metrics(metrics), metrics["sched_stats"], payload
+    return (cell, _numeric_metrics(metrics), metrics["sched_stats"], payload,
+            metrics.get("obs"))
 
 
 def _load_predictor(predictor: TaskPredictor, payload, registry_dir):
@@ -292,18 +293,31 @@ def _run_atlas_cell(args):
     predictor = _load_predictor(TaskPredictor(**_predictor_kw(cfg)),
                                 payload, registry_dir)
     metrics, _, _ = run_scheduler(cell.scheduler, cfg, predictor)
-    return cell, _numeric_metrics(metrics), metrics["sched_stats"]
+    return (cell, _numeric_metrics(metrics), metrics["sched_stats"],
+            metrics.get("obs"))
 
 
-def _run_atlas_wave_brokered(wave2, registry_dir, device):
+def _broker_observer(obs_dir):
+    """The serving broker's flush observer, streaming its per-flush frames
+    to ``<obs_dir>/broker.ndjson``; None when telemetry is off."""
+    if obs_dir is None:
+        return None
+    from repro_torch.obs import BrokerObserver, NDJSONSink
+    return BrokerObserver(
+        sink=NDJSONSink(pathlib.Path(obs_dir) / "broker.ndjson"))
+
+
+def _run_atlas_wave_brokered(wave2, registry_dir, device, obs_dir=None):
     """Run every ATLAS cell concurrently as a client of one shared
     PredictionBroker on ``device``.  Clients are registered before any thread
     starts so the lock-step rounds (and hence dispatch counts) are a pure
-    function of the decision streams, not of thread scheduling.  Returns
-    (records, perf)."""
+    function of the decision streams, not of thread scheduling.  With
+    ``obs_dir`` a ``BrokerObserver`` records every flush.  Returns (records,
+    perf)."""
     from repro_torch.online.broker import BrokerPredictor, PredictionBroker
 
     broker = PredictionBroker(device=device)
+    broker.obs = broker_obs = _broker_observer(obs_dir)
     broker.add_clients(len(wave2))
     predictors = []
 
@@ -317,15 +331,20 @@ def _run_atlas_wave_brokered(wave2, registry_dir, device):
             metrics, _, _ = run_scheduler(cell.scheduler, cfg, predictor)
         finally:
             broker.done()
-        return cell, _numeric_metrics(metrics), metrics["sched_stats"]
+        return (cell, _numeric_metrics(metrics), metrics["sched_stats"],
+                metrics.get("obs"))
 
     # every cell MUST get a thread: all clients are registered up front, and a
     # round only flushes once every registered client has queued — capping
     # max_workers below len(wave2) would leave unstarted cells registered but
     # silent, deadlocking the running ones inside broker.submit
-    with concurrent.futures.ThreadPoolExecutor(
-            max_workers=max(len(wave2), 1)) as pool:
-        out = list(pool.map(run_one, wave2))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=max(len(wave2), 1)) as pool:
+            out = list(pool.map(run_one, wave2))
+    finally:
+        if broker_obs is not None:
+            broker_obs.close()
     demand_calls = sum(p.n_demand_calls for p in predictors)
     demand_rows = sum(p.n_demand_rows for p in predictors)
     perf = {"broker": {
@@ -335,11 +354,13 @@ def _run_atlas_wave_brokered(wave2, registry_dir, device):
         "dispatch_reduction": round(
             demand_calls / max(broker.n_dispatches, 1), 2),
     }}
+    if broker_obs is not None:
+        perf["broker_obs"] = broker_obs.summary(deterministic_only=True)
     return out, perf
 
 
-def _run_atlas_wave_async(wave2, registry_dir, device, fault_plan=None,
-                          fault_stats=None):
+def _run_atlas_wave_async(wave2, registry_dir, device, obs_dir=None,
+                          fault_plan=None, fault_stats=None):
     """Run every ATLAS cell as a *transport client* of one serving
     ``AsyncBroker`` (policy="barrier") on ``device``: the same lock-step
     rounds as ``--executor broker``, driven by an event loop over
@@ -356,11 +377,13 @@ def _run_atlas_wave_async(wave2, registry_dir, device, fault_plan=None,
     ``fault_stats`` (a caller-owned dict) receives the retry/replay/fallback
     counters and the longest request wait; they are reported there and
     *only* there so the deterministic ``perf.broker`` block stays
-    byte-identical under chaos.  Returns (records, perf)."""
+    byte-identical under chaos.  With ``obs_dir`` a ``BrokerObserver``
+    records every flush.  Returns (records, perf)."""
     from repro_torch.online.broker import BrokerPredictor
     from repro_torch.online.server import AsyncBroker, BrokerClient
 
-    server = AsyncBroker(policy="barrier", device=device).start()
+    server = AsyncBroker(policy="barrier", device=device)
+    server.obs = broker_obs = _broker_observer(obs_dir)
     predictors = []
     clients = []
     client_kw = {}
@@ -387,9 +410,11 @@ def _run_atlas_wave_async(wave2, registry_dir, device, fault_plan=None,
         finally:
             client.done()
             client.close()
-        return cell, _numeric_metrics(metrics), metrics["sched_stats"]
+        return (cell, _numeric_metrics(metrics), metrics["sched_stats"],
+                metrics.get("obs"))
 
     try:
+        server.start()
         address = server.serve(fault_plan=fault_plan)
         server.add_clients(len(wave2))
         # same rule as the threaded broker wave: every registered client
@@ -420,6 +445,10 @@ def _run_atlas_wave_async(wave2, registry_dir, device, fault_plan=None,
                 (c.max_wait_s for c in clients), default=0.0)
     finally:
         server.stop()
+        if broker_obs is not None:
+            broker_obs.close()
+    if broker_obs is not None:
+        perf["broker_obs"] = broker_obs.summary(deterministic_only=True)
     return out, perf
 
 
@@ -461,15 +490,15 @@ class _CellLedger:
     ``os.replace``, so a SIGKILL anywhere leaves either a complete record or
     none.  Training payloads ride along (registry versions inline, raw trace
     datasets as an ``.npz`` sidecar written *before* its record, so a record
-    always implies a readable payload).  ``MANIFEST.json`` carries a
-    fingerprint over (spec, executor, registry): a restart with the same
+    always implies a readable payload), and so does each cell's telemetry
+    roll-up.  ``MANIFEST.json`` carries a fingerprint over (spec, executor,
+    registry, obs): a restart with the same
     coordinates skips finished cells and reassembles byte-identical
     ``SWEEP.json``; any mismatch wipes the ledger rather than mixing cells
     from different sweeps.  The device is not in the fingerprint: cells are
     equal on every device.
 
-    The broker/async ATLAS wave is reused all-or-nothing: its
-    ``perf.broker``
+    The broker/async ATLAS wave is reused all-or-nothing: its ``perf.broker``
     counters are a function of the *entire* barrier-round schedule, so
     partial reuse would stitch together a schedule no real run produces.
     That wave only resumes when every cell record plus the wave perf record
@@ -477,11 +506,11 @@ class _CellLedger:
     regenerates the exact same bytes anyway."""
 
     def __init__(self, dir, spec: SweepSpec, executor: str,
-                 registry: str | None):
+                 registry: str | None, obs: bool):
         self.dir = pathlib.Path(dir)
         self.fingerprint = cell_seed(
             "ledger", json.dumps(spec.to_json(), sort_keys=True), executor,
-            registry or "")
+            registry or "", int(obs))
         self.dir.mkdir(parents=True, exist_ok=True)
         manifest = self.dir / "MANIFEST.json"
         keep = False
@@ -511,8 +540,9 @@ class _CellLedger:
         except (OSError, ValueError):
             return None
 
-    def store_wave1(self, cell, metrics, stats, payload):
-        rec = {"metrics": metrics, "stats": stats, "payload": None}
+    def store_wave1(self, cell, metrics, stats, payload, obs):
+        rec = {"metrics": metrics, "stats": stats, "obs": obs,
+               "payload": None}
         if payload is not None:
             if payload[0] == "registry":
                 rec["payload"] = list(payload)
@@ -539,8 +569,9 @@ class _CellLedger:
             return ("datasets", ((z["map_X"].copy(), z["map_y"].copy()),
                                  (z["red_X"].copy(), z["red_y"].copy())))
 
-    def store_wave2(self, cell, metrics, stats):
-        self._write(self._path(2, cell), {"metrics": metrics, "stats": stats})
+    def store_wave2(self, cell, metrics, stats, obs):
+        self._write(self._path(2, cell),
+                    {"metrics": metrics, "stats": stats, "obs": obs})
 
     def store_wave2_perf(self, perf: dict):
         self._write(self.dir / "w2__PERF.json", perf)
@@ -557,13 +588,19 @@ class _CellLedger:
             rec = self.load(2, cell)
             if rec is None:
                 return None
-            out.append((cell, rec["metrics"], rec["stats"]))
+            out.append((cell, rec["metrics"], rec["stats"], rec["obs"]))
         return out, perf
 
 
 # ---------------------------------------------------------------------------
 # Sweep driver
 # ---------------------------------------------------------------------------
+
+def _obs_path(obs_dir, cell: CellSpec) -> str:
+    """Frame-stream path for one cell: cell_id with '/' flattened to '__'."""
+    return str(pathlib.Path(obs_dir)
+               / (cell.cell_id.replace("/", "__") + ".ndjson"))
+
 
 def run_sweep(spec: SweepSpec, *, executor: str = "process",
               workers: int | None = None, registry: str | None = None,
@@ -581,22 +618,27 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
     ``executor="broker"`` serves wave 2 through one shared PredictionBroker
     (identical cells, far fewer predictor dispatches — see ``perf.broker``).
     ``registry=DIR`` ships model *versions* through a ModelRegistry instead of
-    raw trace arrays (forest-family algos).  ``resume_dir=DIR`` keeps an
-    atomic per-cell ledger there (:class:`_CellLedger`): a sweep killed
-    mid-run and restarted with the same coordinates skips finished cells and
-    reassembles the identical ``SWEEP.json`` bytes.  ``device`` is where
-    every predictor fits and scores (None: CUDA, raising without a GPU).
+    raw trace arrays (forest-family algos).  ``obs_dir=DIR`` streams per-cell
+    telemetry frames there and stamps per-cell roll-ups under ``perf.obs`` —
+    cells/aggregates/rankings stay byte-identical either way.
+    ``obs_live=ADDR`` additionally streams every cell's frames to a live
+    TelemetryCollector over the serving transport (source = cell id); use a
+    ``tcp://`` address with the process/spawn executors — ``inproc://``
+    channels don't cross process boundaries.  The live path only observes:
+    SWEEP output bytes are identical with it on or off.
+
+    ``resume_dir=DIR`` keeps an atomic per-cell ledger there
+    (:class:`_CellLedger`): a sweep killed mid-run and restarted with the
+    same coordinates skips finished cells and reassembles the identical
+    ``SWEEP.json`` bytes.  ``device`` is where every predictor fits and
+    scores (None: CUDA, raising without a GPU).
 
     ``executor="async"`` serves wave 2 through one ``AsyncBroker`` over the
     transport (the broker executor's bytes, ``perf.broker`` included).
     ``fault_plan`` (async executor only) injects a seeded fault schedule
     into that serving path; ``fault_stats`` (a caller-owned dict) receives
     the retry/replay/fallback counters, kept out of the returned result so
-    SWEEP bytes match a fault-free run.  ``obs_dir`` and ``obs_live`` are
-    the JAX package's live telemetry, whose ``obs/`` package is not ported
-    yet: asking for them raises ``NotImplementedError``."""
-    if obs_dir is not None or obs_live is not None:
-        _not_ported("live telemetry (obs_dir / obs_live)", "the obs/ package")
+    SWEEP bytes match a fault-free run."""
     if fault_plan is not None and executor != "async":
         raise ValueError("fault_plan requires executor='async' "
                          "(the transport-served ATLAS wave)")
@@ -607,7 +649,13 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
     atlas_cells = [c for c in cells if atlas_base_name(c.scheduler) is not None]
 
     def _cfg(cell: CellSpec) -> ExperimentConfig:
-        return dataclasses.replace(cell_config(spec, cell), device=device)
+        cfg = dataclasses.replace(cell_config(spec, cell), device=device)
+        if obs_dir is not None:
+            cfg = dataclasses.replace(cfg, obs_path=_obs_path(obs_dir, cell))
+        if obs_live is not None:
+            cfg = dataclasses.replace(cfg, obs_live_addr=obs_live,
+                                      obs_source=cell.cell_id)
+        return cfg
 
     # training runs needed: one per (base, env) over the ATLAS cells
     needed_cells: dict[tuple, CellSpec] = {}
@@ -631,23 +679,31 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
         f"({len(base_cells)} base + {len(atlas_cells)} atlas), "
         f"{len(train_cells)} extra training runs, executor={executor}, "
         f"device={device}"
-        + (f", registry={registry}" if registry else ""))
+        + (f", registry={registry}" if registry else "")
+        + (f", obs={obs_dir}" if obs_dir else "")
+        + (f", obs_live={obs_live}" if obs_live else ""))
 
     ledger = None
     if resume_dir is not None:
-        ledger = _CellLedger(resume_dir, spec, executor, registry)
+        ledger = _CellLedger(resume_dir, spec, executor, registry,
+                             obs_dir is not None)
 
     results: dict[str, dict] = {}
     train_data: dict[tuple, object] = {}
     perf: dict = {}
+    obs_cells: dict[str, dict] = {}
 
-    def _fold1(cell, metrics, stats, payload):
+    def _fold1(cell, metrics, stats, payload, obs):
         if payload is not None:
             train_data[(cell.scheduler,) + cell.env_key] = payload
         results[cell.cell_id] = _cell_record(cell, metrics, stats)
+        if obs is not None:
+            obs_cells[cell.cell_id] = obs
 
-    def _fold2(cell, metrics, stats):
+    def _fold2(cell, metrics, stats, obs):
         results[cell.cell_id] = _cell_record(cell, metrics, stats)
+        if obs is not None:
+            obs_cells[cell.cell_id] = obs
 
     wave1_todo, n1_resumed = [], 0
     for args in wave1:
@@ -656,16 +712,16 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
             wave1_todo.append(args)
         else:
             _fold1(args[0], rec["metrics"], rec["stats"],
-                   ledger.payload_from(rec))
+                   ledger.payload_from(rec), rec["obs"])
             n1_resumed += 1
 
     n2_resumed = 0
     with _make_executor(executor, workers) as pool:
-        for cell, metrics, stats, payload in pool.map(_run_base_cell,
-                                                      wave1_todo):
+        for cell, metrics, stats, payload, obs in pool.map(_run_base_cell,
+                                                           wave1_todo):
             if ledger is not None:
-                ledger.store_wave1(cell, metrics, stats, payload)
-            _fold1(cell, metrics, stats, payload)
+                ledger.store_wave1(cell, metrics, stats, payload, obs)
+            _fold1(cell, metrics, stats, payload, obs)
         log(f"[fleet] wave 1 done: {len(wave1)} runs"
             + (f" ({n1_resumed} resumed)" if n1_resumed else "")
             + f", {len(train_data)} training payloads "
@@ -681,18 +737,18 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
                 wave2_out, perf = cached
                 n2_resumed = len(wave2_out)
             elif executor == "broker":
-                wave2_out, perf = _run_atlas_wave_brokered(wave2, registry,
-                                                           device)
+                wave2_out, perf = _run_atlas_wave_brokered(
+                    wave2, registry, device, obs_dir)
             else:
                 wave2_out, perf = _run_atlas_wave_async(
-                    wave2, registry, device, fault_plan=fault_plan,
+                    wave2, registry, device, obs_dir, fault_plan=fault_plan,
                     fault_stats=fault_stats)
             if ledger is not None and not n2_resumed:
-                for cell, metrics, stats in wave2_out:
-                    ledger.store_wave2(cell, metrics, stats)
+                for cell, metrics, stats, obs in wave2_out:
+                    ledger.store_wave2(cell, metrics, stats, obs)
                 ledger.store_wave2_perf(perf)
-            for cell, metrics, stats in wave2_out:
-                _fold2(cell, metrics, stats)
+            for cell, metrics, stats, obs in wave2_out:
+                _fold2(cell, metrics, stats, obs)
         else:
             wave2_todo = []
             for w in wave2:
@@ -700,13 +756,13 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
                 if rec is None:
                     wave2_todo.append(w)
                 else:
-                    _fold2(w[0], rec["metrics"], rec["stats"])
+                    _fold2(w[0], rec["metrics"], rec["stats"], rec["obs"])
                     n2_resumed += 1
-            for cell, metrics, stats in pool.map(
+            for cell, metrics, stats, obs in pool.map(
                     _run_atlas_cell, [w + (registry,) for w in wave2_todo]):
                 if ledger is not None:
-                    ledger.store_wave2(cell, metrics, stats)
-                _fold2(cell, metrics, stats)
+                    ledger.store_wave2(cell, metrics, stats, obs)
+                _fold2(cell, metrics, stats, obs)
     log(f"[fleet] wave 2 done: {len(atlas_cells)} atlas runs"
         + (f" ({n2_resumed} resumed)" if n2_resumed else "")
         + f" ({time.perf_counter() - t0:.1f}s total)")
@@ -721,6 +777,15 @@ def run_sweep(spec: SweepSpec, *, executor: str = "process",
     wanted = {c.cell_id for c in cells}
     records = [results[cid] for cid in sorted(wanted)]
     aggregates = aggregate(records)
+    # telemetry roll-ups live ONLY under perf.obs: strip perf.obs (and an
+    # emptied perf) from SWEEP.json and the bytes match an obs-off run
+    if obs_dir is not None:
+        obs_block = {"cells": {cid: obs_cells[cid]
+                               for cid in sorted(obs_cells) if cid in wanted}}
+        broker_obs = perf.pop("broker_obs", None)
+        if broker_obs is not None:
+            obs_block["broker"] = broker_obs
+        perf["obs"] = obs_block
     import repro_torch
     return {
         "spec": spec.to_json(),
@@ -928,11 +993,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "and stamp violation counts into cell metrics "
                          "(repro_torch.cluster.invariants)")
     ap.add_argument("--obs", action="store_true",
-                    help="per-cell telemetry frames (needs obs/, not ported "
-                         "yet: raises)")
+                    help="stream per-cell telemetry frames to <out>/obs/ and "
+                         "stamp deterministic roll-ups under perf.obs "
+                         "(simulation results unchanged)")
     ap.add_argument("--obs-live", default=None, metavar="ADDR",
-                    help="live telemetry stream (needs obs/, not ported "
-                         "yet: raises)")
+                    help="also stream every cell's frames to a live "
+                         "TelemetryCollector at this transport address "
+                         "(tcp://host:port — see python -m "
+                         "repro_torch.obs.live); simulation results "
+                         "unchanged")
     ap.add_argument("--resume", action="store_true",
                     help="keep an atomic per-cell ledger in <out>/cells and "
                          "skip cells it already holds: a sweep killed "
@@ -984,10 +1053,10 @@ def main(argv=None) -> int:
     resume_dir = (str(pathlib.Path(args.out) / "cells")
                   if args.resume else None)
     fault_stats = {} if fault_plan is not None else None
+    obs_dir = str(pathlib.Path(args.out) / "obs") if args.obs else None
     result = run_sweep(
         spec, executor=args.executor, workers=args.workers,
-        registry=args.registry,
-        obs_dir=str(pathlib.Path(args.out) / "obs") if args.obs else None,
+        registry=args.registry, obs_dir=obs_dir,
         obs_live=args.obs_live, resume_dir=resume_dir,
         fault_plan=fault_plan, fault_stats=fault_stats, device=args.device)
     jp, mp = write_outputs(result, args.out)
@@ -1000,7 +1069,8 @@ def main(argv=None) -> int:
               f"{fault_stats.get('fallbacks', 0)} fallbacks, "
               f"{fault_stats['injected']['events']} injected events")
     sys.stdout.write(sweep_markdown(result))
-    print(f"[fleet] wrote {jp} and {mp}")
+    print(f"[fleet] wrote {jp} and {mp}"
+          + (f" (+ telemetry frames in {obs_dir})" if obs_dir else ""))
     return 0
 
 

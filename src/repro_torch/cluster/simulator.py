@@ -220,7 +220,7 @@ class Simulator:
         self.task_timeout = task_timeout
         self.chaos = chaos
         self.trace = trace                    # TelemetryTrace or None
-        self.obs = obs                        # SimObserver (obs/, unported) or None
+        self.obs = obs                        # obs.SimObserver or None
         self.time_limit = time_limit
         self.hazard_noise = hazard_noise
 
@@ -244,6 +244,11 @@ class Simulator:
         self._free_map: set = {n.nid for n in self.nodes}
         self._free_reduce: set = {n.nid for n in self.nodes}
         self._known_alive: set = {n.nid for n in self.nodes}
+        # nodes whose running / failed counts, and nodes whose last
+        # heartbeat, moved since the telemetry observer's last frame (None
+        # without an observer)
+        self.changed_nodes: set | None = set() if obs is not None else None
+        self.beat_nodes: set | None = set() if obs is not None else None
 
         scheduler.bind(self)
         # invariant checker (repro_torch.cluster.invariants): read-only observer, so
@@ -274,8 +279,15 @@ class Simulator:
 
     def _sync_free(self, node: Node):
         """Refresh the node's membership in the free-slot indices (called on
-        every running-count change — launch and release only)."""
+        every running-count change — launch and release only — and so on
+        every failed-count change too, each of which follows a release on
+        the same node).  With telemetry on, the node also lands in
+        ``changed_nodes``, the nodes whose counts a frame must re-read (a
+        node whose heartbeat lands goes to ``beat_nodes``, in
+        ``_on_heartbeat``)."""
         nid = node.nid
+        if self.changed_nodes is not None:
+            self.changed_nodes.add(nid)
         if node.running_maps < node.spec.map_slots:
             self._free_map.add(nid)
         else:
@@ -562,6 +574,8 @@ class Simulator:
         node = self.nodes[nid]
         if node.tt_alive:
             node.last_heartbeat = self.now
+            if self.beat_nodes is not None:
+                self.beat_nodes.add(nid)
             if not node.known_alive:
                 node.known_alive = True
                 self._known_alive.add(nid)

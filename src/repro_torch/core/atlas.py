@@ -261,3 +261,7 @@ class ATLASScheduler(Scheduler):
             **({"degraded_decisions": self.n_degraded_decisions}
                if self.n_degraded_decisions else {}),
         )
+
+    def frame_stats(self) -> dict:
+        return {"penalty_box": len(self.penalty_box),
+                "pred": self.predictor.frame_stats()}

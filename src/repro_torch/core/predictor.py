@@ -116,6 +116,14 @@ class TaskPredictor:
                            0.0, 1.0).astype(np.float32)
         return np.asarray(model.predict_proba(X), np.float32)
 
+    def frame_stats(self) -> dict:
+        """Live accounting snapshot for the obs layer (``Scheduler.
+        frame_stats()["pred"]``).  The plain predictor has no memo, so the
+        memo counters are structurally zero; BrokerPredictor overrides with
+        its real accounting plus memo size/eviction fields."""
+        return {"dispatches": self.n_dispatches, "rows": self.n_rows_scored,
+                "memo_hits": 0, "memo_misses": 0, "demand_rows": 0}
+
     def begin_tick(self, sim, extra_keys=()):
         """Scheduler-tick hook (no-op here).  The online BrokerPredictor uses
         it to snapshot the pending queue and prime one batched flush."""

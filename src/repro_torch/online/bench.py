@@ -38,9 +38,16 @@ land in the summary (``ONLINE.json``) and — with ``--stamp-sweep`` —
 ``SWEEP.json``.  ``--policy depth`` serves the broker section through the
 queue-depth flush policy with bounded delay instead of the deterministic
 barrier.  Exit status is non-zero when the batched run shows no throughput,
-parity breaks, or an open-loop p99 exceeds max(10 x p50, 25 ms).  The JAX
-package's ``--obs`` / ``--obs-live`` need ``obs/``, which is not ported yet:
-they raise ``NotImplementedError``."""
+parity breaks, or an open-loop p99 exceeds max(10 x p50, 25 ms).
+
+``--obs`` attaches a ``BrokerObserver`` to the broker mode: per-flush NDJSON
+frames under ``<out>/obs/bench_n<size>.ndjson`` and its roll-up (flush-row
+and wall-latency histograms, p50/p99) under the broker section.  The port
+writes no ``BENCH_*.json``, so where the JAX package also stamps that
+roll-up per fleet size into ``BENCH_<pr>.json``, here it lands only in
+``ONLINE.json``'s ``per_fleet_size.<size>.broker.obs`` (the primary size's
+in ``broker.obs`` too).  ``--obs-live ADDR`` streams the same flush frames
+to a live ``TelemetryCollector`` (source ``bench_n<size>``)."""
 
 from __future__ import annotations
 
@@ -178,10 +185,12 @@ def run_scalar(predictor: TaskPredictor, requests) -> dict:
 def run_broker(predictor: TaskPredictor, requests, *, clients: int = 12,
                impl: str | None = None, device=None, rate: float = 0.0,
                policy: str = "barrier", depth: int = 256,
-               max_delay: float = 0.002) -> dict:
-    """Concurrent clients replaying shards of the stream through one broker."""
+               max_delay: float = 0.002, obs=None) -> dict:
+    """Concurrent clients replaying shards of the stream through one broker
+    (flushes recorded by ``obs``, a ``BrokerObserver``, when given)."""
     broker = PredictionBroker(impl=impl, device=device, policy=policy,
                               depth=depth, max_delay=max_delay)
+    broker.obs = obs
     shards = [list(range(c, len(requests), clients)) for c in range(clients)]
     shards = [s for s in shards if s]
     broker.add_clients(len(shards))
@@ -225,16 +234,22 @@ def run_broker(predictor: TaskPredictor, requests, *, clients: int = 12,
         return lat[min(int(q * len(lat)), len(lat) - 1)] * 1e3 if lat else 0.0
 
     s = broker.stats()
-    return {"rows": s["rows"], "requests": s["requests"], "seconds": dt,
-            "rows_per_s": s["rows"] / max(dt, 1e-9),
-            "dispatches": s["dispatches"], "flushes": s["flushes"],
-            "max_flush_rows": s["max_flush_rows"],
-            "clients": len(shards), "impl": impl, "policy": policy,
-            "solo_flushes": broker.n_solo_flushes,
-            "deadline_flushes": broker.n_deadline_flushes,
-            "latency_ms": {"p50": pct(0.50), "p95": pct(0.95),
-                           "p99": pct(0.99)},
-            "outputs": outs}
+    out = {"rows": s["rows"], "requests": s["requests"], "seconds": dt,
+           "rows_per_s": s["rows"] / max(dt, 1e-9),
+           "dispatches": s["dispatches"], "flushes": s["flushes"],
+           "max_flush_rows": s["max_flush_rows"],
+           "clients": len(shards), "impl": impl, "policy": policy,
+           "solo_flushes": broker.n_solo_flushes,
+           "deadline_flushes": broker.n_deadline_flushes,
+           "latency_ms": {"p50": pct(0.50), "p95": pct(0.95),
+                          "p99": pct(0.99)},
+           "outputs": outs}
+    if obs is not None:
+        obs.close()
+        # full summary: the flush-latency section is reporting-only (wall
+        # clock), as the bench's other latency numbers already are
+        out["obs"] = obs.summary()
+    return out
 
 
 def run_saturated(predictor: TaskPredictor, requests,
@@ -557,18 +572,32 @@ def run_bench(*, rows: int = 6000, clients: int = 12, workload: str = "smoke",
               open_loop: bool = True, open_rate: float = 0.0,
               open_backends: tuple = ("inproc", "tcp"),
               slo_ms: float = 25.0) -> dict:
-    if obs_dir is not None or obs_live is not None:
-        raise NotImplementedError("the bench's broker telemetry (obs_dir / "
-                                  "obs_live) needs the obs/ package, which "
-                                  "repro_torch has not ported yet")
     predictor, requests = build_stream(workload=workload, scenario=scenario,
                                        seed=seed, min_rows=rows,
                                        fleet_size=fleet_size, device=device)
+    obs = None
+    if obs_dir is not None or obs_live is not None:
+        from repro_torch.obs import (BrokerObserver, NDJSONSink, TeeSink,
+                                     TransportSink)
+        sinks = []
+        if obs_dir is not None:
+            d = pathlib.Path(obs_dir)
+            d.mkdir(parents=True, exist_ok=True)
+            sinks.append(NDJSONSink(d / f"bench_n{fleet_size}.ndjson"))
+        if obs_live is not None:
+            from repro_torch.obs.sink import telemetry_loop
+            loop = (telemetry_loop()
+                    if obs_live.startswith("tcp://") else None)
+            sinks.append(TransportSink(obs_live, loop=loop,
+                                       source=f"bench_n{fleet_size}",
+                                       flush_every=8))
+        obs = BrokerObserver(
+            sink=sinks[0] if len(sinks) == 1 else TeeSink(*sinks))
     mirror = {"outputs": mirror_outputs(predictor, requests)}
     scalar = run_scalar(predictor, requests)
     broker = run_broker(predictor, requests, clients=clients, impl=impl,
                         device=device, rate=rate, policy=policy, depth=depth,
-                        max_delay=max_delay)
+                        max_delay=max_delay, obs=obs)
     saturated = run_saturated(predictor, requests, impl=impl, device=device)
     parity = _parity(mirror, scalar, broker, saturated)
     open_runs = {}
@@ -662,11 +691,13 @@ def main(argv=None) -> int:
                     default=None, metavar="SWEEP_JSON",
                     help="merge the summary into an existing SWEEP.json/.md")
     ap.add_argument("--obs", action="store_true",
-                    help="per-flush telemetry frames (needs obs/, not "
-                         "ported yet: raises)")
+                    help="attach a BrokerObserver: per-flush NDJSON frames "
+                         "under <out>/obs/ and an obs block in each size's "
+                         "broker section of ONLINE.json")
     ap.add_argument("--obs-live", default=None, metavar="ADDR",
-                    help="live broker telemetry stream (needs obs/, not "
-                         "ported yet: raises)")
+                    help="also stream broker flush frames to a live "
+                         "TelemetryCollector at this transport address "
+                         "(see python -m repro_torch.obs.live)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny CI run (fewer rows/clients)")
     args = ap.parse_args(argv)

@@ -52,6 +52,7 @@ grouped CUDA kernel on the card, its plain torch version on the CPU),
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 
@@ -211,6 +212,8 @@ class PredictionBroker:
         self._clients = 0
         self._timer: threading.Timer | None = None
         self._timer_gen = 0
+        # optional obs.BrokerObserver: per-flush rows/requests/latency
+        self.obs = None
         # accounting
         self.n_flushes = 0
         self.n_dispatches = 0
@@ -287,13 +290,20 @@ class PredictionBroker:
                 self._flush_locked()
 
     # ------------------------------------------------------------ flushing
-    def _score(self, groups) -> list:
+    def _score(self, groups, n_requests: int = 1) -> list:
+        """One flush of ``n_requests`` requests' groups.  The observer's
+        wall latency spans the scoring call, which returns host arrays, so
+        on the card it includes the kernel and both copies."""
+        t0 = time.perf_counter()
         outs, n = score_groups(groups, impl=self.impl, device=self.device)
         rows = sum(np.asarray(X).shape[0] for _, X in groups)
         self.n_flushes += 1
         self.n_dispatches += n
         self.n_rows += rows
         self.max_flush_rows = max(self.max_flush_rows, rows)
+        if self.obs is not None:
+            self.obs.record_flush(rows, n_requests, n,
+                                  time.perf_counter() - t0)
         return outs
 
     def _flush_locked(self):
@@ -303,7 +313,8 @@ class PredictionBroker:
         self._timer_gen += 1                  # invalidate any pending timer
         self._timer = None
         try:
-            outs = self._score([g for p in batch for g in p.groups])
+            outs = self._score([g for p in batch for g in p.groups],
+                               len(batch))
             at = 0
             for p in batch:
                 p.outs = outs[at:at + len(p.groups)]
@@ -388,6 +399,19 @@ class BrokerPredictor(TaskPredictor):
         self._tick_sim = sim
         self._tick_keys = tuple(dict.fromkeys(
             tuple(sim.pending) + tuple(extra_keys)))
+
+    def frame_stats(self) -> dict:
+        # field order matters: NDJSON frame bytes must match the JAX
+        # package's per-frame pred dict exactly (new keys append at the end)
+        return {"dispatches": self.n_dispatches, "rows": self.n_rows_scored,
+                "memo_hits": self.n_memo_hits,
+                "memo_misses": self.n_memo_misses,
+                "demand_rows": self.n_demand_rows,
+                "memo_size": len(self._memo),
+                "memo_evictions": self.n_memo_evictions,
+                "fallbacks": self.n_fallbacks,
+                "retries": getattr(self.broker, "n_retries", 0),
+                "reconnects": getattr(self.broker, "n_reconnects", 0)}
 
     def _models_changed(self):
         # retrain/promote swaps the models: memoised probabilities are stale

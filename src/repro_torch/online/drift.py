@@ -20,9 +20,12 @@ kept as a *staleness fallback*; on top of it:
   (archive the candidate, keep serving the old version) — every transition
   recorded.
 
-Both are the JAX package's (``repro/online/drift.py``) without its live
-telemetry hooks (``obs/`` is not ported): numpy statistics on the host, and
-a candidate predictor fitted and scored on the live predictor's device."""
+Both are the JAX package's (``repro/online/drift.py``): numpy statistics on
+the host, and a candidate predictor fitted and scored on the live predictor's
+device.  With an observer attached (``OnlineRefresher.obs``, an
+``obs.SimObserver``) every check records both kinds' drift signals and every
+lifecycle event lands in the telemetry frames; recording only reads the
+monitors, so no refresh decision moves."""
 
 from __future__ import annotations
 
@@ -139,6 +142,7 @@ class OnlineRefresher:
         self.monitors = {k: DriftMonitor(**(monitor_kw or {}))
                          for k in ("map", "reduce")}
         self.predictor = None
+        self.obs = None            # optional obs.SimObserver
         self.events: list[dict] = []
         self.refreshes = 0
         self.promotions = 0
@@ -146,6 +150,7 @@ class OnlineRefresher:
         self._cursor = {"map": 0, "reduce": 0}
         self._last_fit_at = 0.0
         self._baselined = False
+        self._now = 0.0
 
     def bind_predictor(self, predictor):
         self.predictor = predictor
@@ -165,6 +170,7 @@ class OnlineRefresher:
         """Ingest new outcomes, check drift + staleness, maybe refresh.
         Returns True when a retrain was attempted."""
         pred = self.predictor
+        self._now = sim.now
         if pred.ready and not self._baselined:
             # pre-fitted predictor (fleet payload / compare()): anchor the
             # reference now, or both drift signals stay inert until the first
@@ -182,13 +188,17 @@ class OnlineRefresher:
         stale = sim.now - self._last_fit_at >= self.retrain_every
         reason = "staleness" if stale else None
         for kind, mon in self.monitors.items():
-            if reason is not None:
-                break
+            if self.obs is None and reason is not None:
+                break                          # obs-off: the early exit
             s = mon.signals()
-            if s["psi"] > mon.psi_threshold:
-                reason = f"{kind}:feature_psi={s['psi']:.3f}"
-            elif s["score_drift"] > mon.brier_threshold:
-                reason = f"{kind}:brier_drift={s['score_drift']:.3f}"
+            if self.obs is not None:
+                self.obs.record_drift(sim.now, kind, s["psi"], s["brier"],
+                                      s["score_drift"])
+            if reason is None:
+                if s["psi"] > mon.psi_threshold:
+                    reason = f"{kind}:feature_psi={s['psi']:.3f}"
+                elif s["score_drift"] > mon.brier_threshold:
+                    reason = f"{kind}:brier_drift={s['score_drift']:.3f}"
         if reason is None:
             return False
         if not pred.ready and n_new == 0 and not stale:
@@ -282,3 +292,5 @@ class OnlineRefresher:
 
     def _event(self, event: str, **kw):
         self.events.append({"event": event, **kw})
+        if self.obs is not None:               # lifecycle marker into frames
+            self.obs.record_event(event, self._now, **kw)

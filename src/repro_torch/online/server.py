@@ -144,10 +144,12 @@ class AsyncBroker:
         self.slo_margin = float(slo_margin)
         self.max_queue_rows = int(max_queue_rows)
         self.serializer = serializer
-        # optional collaborators (duck-typed: anything with ``emit`` /
-        # ``ingest``, ``source_names`` and ``sources``)
-        self.telemetry_sink = None       # sink for telemetry frames
-        self.collector = None            # live telemetry collector
+        # optional collaborators (duck-typed: anything with
+        # ``record_flush`` / ``emit`` / ``ingest``, ``source_names`` and
+        # ``sources``)
+        self.obs = None                  # obs.BrokerObserver
+        self.telemetry_sink = None       # obs Sink for telemetry frames
+        self.collector = None            # obs.TelemetryCollector
         # per-source telemetry wire accounting (reporting only)
         self._telemetry_sources: dict[str, dict] = {}
         # idempotent-replay state: one outstanding request per client, so a
@@ -525,6 +527,7 @@ class AsyncBroker:
             self._slo_at = float("inf")
         self._drain.set()
         flat = [g for req in batch for g in req.groups]
+        t0 = time.perf_counter()
         try:
             outs, n = score_groups(flat, impl=self.impl, device=self.device)
         except Exception as e:
@@ -535,6 +538,9 @@ class AsyncBroker:
         self.n_dispatches += n
         self.n_rows += rows
         self.max_flush_rows = max(self.max_flush_rows, rows)
+        if self.obs is not None:
+            self.obs.record_flush(rows, len(batch), n,
+                                  time.perf_counter() - t0)
         at = 0
         for req in batch:
             span = outs[at:at + len(req.groups)]

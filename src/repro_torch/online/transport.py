@@ -388,12 +388,17 @@ class TCPComm(Comm):
 
 
 class _TCPListener(Listener):
-    def __init__(self, server, address: str, comms: set):
+    def __init__(self, server, address: str, comms: set, stopping: list):
         self._server = server
         self.address = address
         self._comms = comms              # accepted comms whose handler runs
+        self._stopping = stopping        # [bool], read by the accept path
 
     async def stop(self):
+        # a connection accepted but not yet handed to its handler is not in
+        # _comms: the flag makes the accept path sever it instead, or
+        # wait_closed would wait for its handler forever
+        self._stopping[0] = True
         self._server.close()
         for comm in list(self._comms):   # wait_closed waits for them
             comm._abort()
@@ -443,10 +448,14 @@ async def listen(address: str, handler, *, serializer: str = "auto",
         return lst
 
     comms: set = set()
+    stopping = [False]
 
     async def on_connect(reader, writer):
         comm = TCPComm(reader, writer, serializer=serializer,
                        max_frame=max_frame)
+        if stopping[0]:
+            comm._abort()
+            return
         comms.add(comm)
         try:
             await handler(comm)
@@ -459,7 +468,8 @@ async def listen(address: str, handler, *, serializer: str = "auto",
     host, _, port = rest.rpartition(":")
     server = await asyncio.start_server(on_connect, host, int(port))
     bound = server.sockets[0].getsockname()
-    return _TCPListener(server, f"tcp://{bound[0]}:{bound[1]}", comms)
+    return _TCPListener(server, f"tcp://{bound[0]}:{bound[1]}", comms,
+                        stopping)
 
 
 # ---------------------------------------------------------------------------

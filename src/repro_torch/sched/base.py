@@ -103,6 +103,12 @@ class Scheduler:
         return SchedulerStats(launches=self.n_launches,
                               speculative_copies=self.n_speculative_copies)
 
+    def frame_stats(self) -> dict:
+        """Cheap live-state snapshot for the obs layer's per-frame gather:
+        ``{"penalty_box": int, "pred": dict | None}``.  Base schedulers have
+        no penalty box and no predictor; ATLAS overrides both fields."""
+        return {"penalty_box": 0, "pred": None}
+
     # --- policy body
     def schedule(self):
         raise NotImplementedError

@@ -5,6 +5,7 @@ reference's keys, every serving mode is held to the numpy mirror, and the
 CLI's smoke run exits 0 and writes ONLINE.json (never a BENCH_*.json)."""
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -133,8 +134,31 @@ def test_cli_smoke_exits_zero_and_writes_online_json(tmp_path, capsys):
     assert "parity=True" in capsys.readouterr().out
 
 
-def test_cli_telemetry_options_raise_until_obs_is_ported(tmp_path):
-    for flags in (["--obs"], ["--obs-live", "tcp://127.0.0.1:1"]):
-        with pytest.raises(NotImplementedError, match="obs/"):
-            tbench.main(["--smoke", "--device", "cpu", "--no-open-loop",
-                         "--rows", "100", "--out", str(tmp_path), *flags])
+def test_cli_telemetry_options_write_their_block(tmp_path):
+    """--obs writes the broker's per-flush frames and its roll-up into each
+    size's broker section of ONLINE.json; --obs-live streams the same flush
+    frames to a live collector over tcp."""
+    from repro_torch.obs import TelemetryCollector, read_ndjson
+    from repro_torch.online.server import AsyncBroker
+    with AsyncBroker(device=CPU) as srv:
+        coll = TelemetryCollector()
+        srv.collector = coll
+        addr = srv.serve("tcp://127.0.0.1:0")
+        assert tbench.main(["--smoke", "--device", "cpu", "--no-open-loop",
+                            "--rows", "100", "--out", str(tmp_path),
+                            "--obs", "--obs-live", addr]) == 0
+        summary = json.loads((tmp_path / "ONLINE.json").read_text())
+        obs = summary["per_fleet_size"]["0"]["broker"]["obs"]
+        assert summary["broker"]["obs"] == obs
+        flushes = summary["broker"]["flushes"]
+        assert obs["broker.flushes"] == flushes > 0
+        assert obs["broker.rows"] == summary["broker"]["rows"]
+        assert set(obs["flush_latency_ms"]) == {"p50", "p99"}
+        frames = read_ndjson(tmp_path / "obs" / "bench_n0.ndjson")
+        assert [f["type"] for f in frames] == ["flush"] * flushes
+        deadline = time.time() + 10
+        while coll.seq < flushes and time.time() < deadline:
+            time.sleep(0.01)
+    assert coll.aggregates()["bench_n0"]["broker"]["flushes"] == flushes
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ONLINE.json",
+                                                          "obs"]

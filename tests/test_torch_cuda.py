@@ -597,3 +597,42 @@ def test_async_broker_on_the_card_serves_the_mirror(dev):
     assert stats["requests"] == 48
     assert ops.launch_counts()["forest_infer_grouped"] \
         == stats["dispatches"] > 0
+
+
+def test_telemetry_on_the_card_equals_the_cpu(dev, tmp_path):
+    """The obs layer on the card: a telemetry-on compare writes the same
+    frame files as on the CPU (frames carry no device or wall-clock value),
+    and a brokered sweep's BrokerObserver records exactly one flush per
+    grouped-kernel launch and per server dispatch."""
+    import dataclasses
+    import json
+    from repro_torch.cluster import WorkloadConfig, fleet
+    from repro_torch.cluster.experiment import ExperimentConfig, compare
+    cfg = ExperimentConfig(workload=WorkloadConfig(n_single=10, n_chains=2,
+                                                   seed=5),
+                           seed=3, min_samples=32, max_train=40,
+                           obs_frame_every=120.0)
+    out = {}
+    for where in (dev, "cpu"):
+        path = tmp_path / str(where) / "f.ndjson"
+        out[str(where)] = compare("fifo", dataclasses.replace(
+            cfg, device=where, obs_path=str(path)))
+        for run in ("base", "atlas"):
+            assert (path.parent / f"f__{run}.ndjson").exists()
+    assert out[str(dev)] == out["cpu"]
+    for run in ("base", "atlas"):
+        assert (tmp_path / str(dev) / f"f__{run}.ndjson").read_bytes() \
+            == (tmp_path / "cpu" / f"f__{run}.ndjson").read_bytes()
+    spec = fleet.SweepSpec(schedulers=("fifo", "atlas-fifo"), seeds=1,
+                           scenarios=("kitchen_sink",), workloads=("smoke",),
+                           fleet_sizes=(100,), min_samples=40)
+    ops.reset_launch_counts()
+    result = fleet.run_sweep(spec, executor="broker", device=dev,
+                             obs_dir=str(tmp_path / "obs"),
+                             log=lambda *a: None)
+    launches = ops.launch_counts()["forest_infer_grouped"]
+    flushes = result["perf"]["obs"]["broker"]["broker.flushes"]
+    assert flushes == launches == result["perf"]["broker"]["dispatches"] > 0
+    frames = [json.loads(line) for line in
+              (tmp_path / "obs" / "broker.ndjson").read_text().splitlines()]
+    assert len(frames) == flushes

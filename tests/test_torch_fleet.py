@@ -14,6 +14,7 @@ broker run makes demand calls), so the parity is not vacuous."""
 import dataclasses
 import json
 import random
+import time
 
 import pytest
 
@@ -281,10 +282,76 @@ def test_cli_async_with_faults_writes_fault_stats(tmp_path):
                         str(plan), "--out", str(tmp_path / "bad")]) == 2
 
 
-@pytest.mark.parametrize("kw", [
-    dict(obs_dir="obs"), dict(obs_live="tcp://localhost:1"),
-], ids=["obs_dir", "obs_live"])
-def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="obs/"):
-        tfleet.run_sweep(tfleet.SweepSpec(**SMALL), device=CPU, log=_quiet,
-                         **kw)
+@pytest.mark.parametrize("option", ["obs_dir", "obs_live"])
+def test_telemetry_options_stream(option, tmp_path):
+    """run_sweep(obs_dir=) writes every cell's frames and stamps perf.obs;
+    run_sweep(obs_live=) streams every cell's frames to a live collector
+    over tcp.  Either way the cells, aggregates and rankings are the
+    telemetry-off sweep's."""
+    from repro_torch.obs import TelemetryCollector, read_ndjson
+    from repro_torch.online.server import AsyncBroker
+    spec = tfleet.SweepSpec(**SMALL)
+    off = _without_provenance(tfleet.run_sweep(spec, executor="serial",
+                                               device=CPU, log=_quiet))
+    cell_ids = {c["cell_id"] for c in off["cells"]}
+    with AsyncBroker(device=CPU) as srv:
+        coll = TelemetryCollector()
+        srv.collector = coll
+        kw = ({"obs_dir": str(tmp_path)} if option == "obs_dir"
+              else {"obs_live": srv.serve("tcp://127.0.0.1:0")})
+        on = tfleet.run_sweep(spec, executor="serial", device=CPU,
+                              log=_quiet, **kw)
+        if option == "obs_live":
+            deadline = time.time() + 10
+            while time.time() < deadline and not (
+                    set(coll.source_names()) == cell_ids and all(
+                        a.get("done") for a in coll.aggregates().values())):
+                time.sleep(0.01)
+    if option == "obs_dir":
+        block = on["perf"].pop("obs")
+        if not on["perf"]:
+            on.pop("perf")
+        assert set(block["cells"]) == cell_ids
+        for cid, summary in block["cells"].items():
+            frames = read_ndjson(tmp_path / (cid.replace("/", "__")
+                                             + ".ndjson"))
+            assert frames[-1]["type"] == "final"
+            assert frames[-1]["summary"] == summary
+    else:
+        assert "perf" not in on
+        aggs = coll.aggregates()
+        assert set(aggs) == cell_ids
+        assert all(a["done"] and a["sim"]["frames"] > 0
+                   for a in aggs.values())
+    assert _without_provenance(on) == off
+
+
+def test_telemetry_resume_never_reuses_obs_off_cells(tmp_path):
+    """The resume ledger's fingerprint carries obs: an obs-on restart over
+    an obs-off ledger wipes it and reruns every cell (so each cell streams
+    its frames and has a roll-up); an obs-on restart over an obs-on ledger
+    resumes, roll-ups included."""
+    spec = tfleet.SweepSpec(schedulers=("fifo", "atlas-fifo"), seeds=1,
+                            scenarios=("baseline",), workloads=("smoke",),
+                            min_samples=40)
+    kw = dict(executor="serial", device=CPU,
+              resume_dir=str(tmp_path / "cells"))
+    off = tfleet.run_sweep(spec, log=_quiet, **kw)
+    runs = []
+    for i in range(2):
+        lines = []
+        runs.append((tfleet.run_sweep(spec, log=lines.append,
+                                      obs_dir=str(tmp_path / f"obs{i}"),
+                                      **kw), lines))
+    (first, first_log), (again, again_log) = runs
+    assert not any("resumed" in line for line in first_log)
+    assert any("resumed" in line for line in again_log)
+    ids = {c["cell_id"] for c in off["cells"]}
+    assert set(first["perf"]["obs"]["cells"]) == ids
+    assert len(list((tmp_path / "obs0").glob("*.ndjson"))) == len(ids)
+    assert not (tmp_path / "obs1").exists()           # nothing reran
+    assert again["perf"] == first["perf"]
+    for result in (first, again):
+        result = dict(result)
+        result.pop("perf")
+        assert tfleet.sweep_json(result) == tfleet.sweep_json(off)

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import get_model
 from repro_torch.ml import forest as tforest
+from repro_torch.obs import live as obs_live
 from repro_torch.ml import models
 from repro_torch.ml.cv import cross_validate
 from repro_torch.online.broker import BrokerPredictor, PredictionBroker
@@ -77,6 +78,16 @@ with AsyncBroker({"map": model}, device="cpu") as server:
 asynced = run_sweep(SweepSpec(workloads=("smoke",), seeds=1, min_samples=40),
                     executor="async", device="cpu", log=lambda *a: None)
 assert asynced["perf"] == sweep["perf"]
+import tempfile
+from repro_torch.obs import read_ndjson, render_html
+with tempfile.TemporaryDirectory() as td:
+    observed = compare("fifo", dataclasses.replace(cfg, obs_path=f"{td}/f.ndjson"))
+    assert observed["atlas"]["obs"]["frames"] > 0
+    assert {k: v for k, v in observed["atlas"].items() if k != "obs"} \
+        == out["atlas"]
+    frames = read_ndjson(f"{td}/f__atlas.ndjson")
+    assert frames[-1]["type"] == "final"
+    assert render_html(frames).startswith("<!DOCTYPE html>")
 leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
@@ -161,9 +172,10 @@ def no_cuda(monkeypatch):
                             executor="serial", log=lambda *a: None),
     lambda: search.run_search(search.SearchConfig(budget=1),
                               log=lambda *a: None),
+    lambda: obs_live.main([]),
 ], ids=["resolve_none", "resolve_cuda", "TaskPredictor", "BrokerPredictor",
         "PredictionBroker", "AsyncBroker", "fit_oblivious_forest", "GLM", "NeuralNet",
-        "cross_validate", "run_sweep", "run_search"])
+        "cross_validate", "run_sweep", "run_search", "obs_live_main"])
 def test_defaults_raise_without_gpu(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()

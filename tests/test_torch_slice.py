@@ -27,8 +27,9 @@ CPU = "cpu"
 
 
 def _port_config(jcfg) -> texp.ExperimentConfig:
-    """The port's ExperimentConfig with the same values as the JAX one
-    (the JAX config's telemetry knobs, unported, stay at defaults)."""
+    """The port's ExperimentConfig with the same values as the JAX one,
+    telemetry knobs (obs_path, obs_frame_every, obs_live_addr, obs_source)
+    included."""
     ported = {f.name for f in dataclasses.fields(texp.ExperimentConfig)}
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg) if f.name in ported}

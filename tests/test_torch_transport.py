@@ -313,6 +313,40 @@ def test_tcp_listener_stop_severs_its_connections(client_closes):
     _run(go())
 
 
+def test_tcp_listener_stop_severs_a_connection_it_has_not_handed_over():
+    """A client on another thread's loop connects and the listener stops at
+    once, before its handler may have started: ``stop`` must sever that
+    connection too, or ``wait_closed`` waits on it forever.  Twenty rounds,
+    each bounded, since the handler's start races the stop."""
+    async def parked(comm):
+        try:
+            await comm.recv()
+        except CommClosedError:
+            pass
+
+    loops = [asyncio.new_event_loop() for _ in range(2)]
+    threads = [threading.Thread(target=lp.run_forever, daemon=True)
+               for lp in loops]
+    for t in threads:
+        t.start()
+    server_loop, client_loop = loops
+    try:
+        for _ in range(20):
+            lst = asyncio.run_coroutine_threadsafe(
+                listen("tcp://127.0.0.1:0", parked), server_loop
+            ).result(WAIT_S)
+            comm = SyncComm.connect(lst.address, client_loop)
+            asyncio.run_coroutine_threadsafe(lst.stop(), server_loop) \
+                .result(WAIT_S)
+            comm.close(timeout=WAIT_S)
+    finally:
+        for lp, t in zip(loops, threads):
+            lp.call_soon_threadsafe(lp.stop)
+            t.join(timeout=WAIT_S)
+            assert not t.is_alive()
+            lp.close()
+
+
 def test_inproc_close_wakes_parked_reader():
     async def go():
         lst = await listen("inproc://tt-close", _echo)
