@@ -96,7 +96,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
            0.005; time_ms per model, the GLM and N.N. fits' share of the
            card's CV time and the device operations of one fit of each
            (torch.profiler); forest_infer launched
-  sweep    the §5 fleet sweep at 1000 nodes (fifo and atlas-fifo x 1 seed
+  sweep    the §5 fleet sweep at 500 nodes (fifo and atlas-fifo x 1 seed
            x baseline and kitchen_sink, map_heavy, per-node hazard) four
            times: serial on the card, broker on the card with a model
            registry, a 2-worker spawn process pool on the card, and serial
@@ -152,6 +152,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
            the 1000-node ATLAS run, in a spawned process of its own as the
            benchmark runs: the NDJSON sink gated at 5 % (9 pairs, any of 3
            attempts), the live tcp sink's overhead recorded, not gated
+  train_kernels
+           flash_attention, rwkv6_scan and mamba2_ssd under autograd at
+           the training microbatches' shapes, bf16: each Function's
+           forward torch.equal to the bare kernel and within the kernel's
+           tolerance of the plain version, its gradients within
+           TRAIN_GRAD_TOL of autograd through the plain version; times of
+           forward + backward, the plain version's and SDPA's
+  train_step
+           stablelm-1.6b (8 steps), rwkv6-1.6b and zamba2-1.2b (3 steps)
+           at full width and depth through make_train_step: launches equal
+           to the derived counts, every gradient leaf finite and not all
+           zero, the first loss within TRAIN_LOSS_RTOL of the plain
+           versions'; losses on the stream and on a fixed batch, step
+           times, peak memory, a profiled step's idle share; for
+           stablelm-1.6b the init witness (_init_witness), whose loss must
+           fall
+  train_elastic
+           repro_torch.launch.train.main on stablelm-1.6b at full width
+           (ATLAS on): committed steps, launches, the bytes and seconds of
+           each checkpoint save and restore, a restore with its digests
+           checked
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.
@@ -242,6 +263,7 @@ DEVICE_TIMED = 20    # calls profiled per case for a kernel's device time
 # the recurrent serving runs, the same traffic as SERVE_ARCH's
 RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
 SCAN_KERNELS = ("rwkv6_scan", "mamba2_ssd")
+SERVE_PATH = {"rwkv6_scan": "serve_rwkv6", "mamba2_ssd": "serve_zamba2"}
 # (B, S, H, Dh) and (B, S, H, P, N): "main" is the serving prefill's shape,
 # k16/k64/k32 tests/test_kernels.py:86-155's cases, then a ragged S, the
 # shortest sequence, both sides of a chunk boundary (the rwkv6 kernel stages
@@ -275,16 +297,19 @@ CV_FOREST = ("Tree", "CTree", "R.F.", "Boost")   # bitwise card = CPU
 CV_DENSE_TOL = 0.005                             # GLM, N.N.: float sums
 # seeds cut from 2 to 1 for time: at 1000 nodes with per-node hazard the
 # kitchen_sink ATLAS cell makes about 333,000 decisions, some 70 s on the
-# card and 150 s on the CPU per run (PERF.md); the fleet size is not cut
+# card and 150 s on the CPU per run (PERF.md); with the training phases the
+# script neared its time limit (1,065 s of 1,200 on an H100), so the fleet
+# is cut to SWEEP_FLEET nodes too (the phase 310 s -> 133 s there)
+SWEEP_FLEET = 500
 SWEEP = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
              scenarios=("baseline", "kitchen_sink"), workloads=("map_heavy",),
-             fleet_sizes=(FLEET,), hazard="per-node")
+             fleet_sizes=(SWEEP_FLEET,), hazard="per-node")
 SWEEP_WORKERS = 2
 SWEEP_KEYS = ("spec", "cells", "aggregates", "rankings")
-# serve_async: the sweep's baseline half (kitchen_sink's 333,000 decisions
-# stay in sweep only), served four ways.  Seeds cut from 2 to 1 for time:
-# at 2 seeds the four runs took 39-54 s each on the card (1.87 M scored
-# rows, 12,856 demand calls) and the phase 144 s (PERF.md); the
+# serve_async: the sweep's baseline half at FLEET nodes (kitchen_sink's
+# ATLAS cell stays in sweep only), served four ways.  Seeds cut from 2 to 1
+# for time: at 2 seeds the four runs took 39-54 s each on the card (1.87 M
+# scored rows, 12,856 demand calls) and the phase 144 s (PERF.md); the
 # fleet size is not cut
 SERVE_ASYNC = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
                    scenarios=("baseline",), workloads=("map_heavy",),
@@ -316,6 +341,35 @@ SEARCH_SMOKE = dict(budget=8, seeds=1, fleet_size=20, scenario="baseline",
 OBS_BUDGET = 0.05
 OBS_ATTEMPTS = 3
 OBS_PAIRS = {"ndjson": 9, "live_tcp": 3}
+
+# training: launch/train.py's default global batch and sequence; the train
+# steps run at full width and depth (stablelm-1.6b 8 steps, the recurrent
+# models 3, cut for time); the kernels' training shapes are those steps'
+# microbatches: (B, S, Skv, H, Hkv, D, causal, window) for attention,
+# (B, S, H, Dh) for rwkv6, (B, S, H, P, N) for mamba2
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_ARCHS = ("stablelm-1.6b", "rwkv6-1.6b", "zamba2-1.2b")
+TRAIN_BATCH, TRAIN_SEQ = 16, 256
+TRAIN_STEPS = {"stablelm-1.6b": 8, "rwkv6-1.6b": 3, "zamba2-1.2b": 3}
+TRAIN_FLASH_CASES = {"stablelm": (8, 256, 256, 32, 32, 64, True, 0),
+                     "zamba2": (2, 256, 256, 32, 32, 64, True, 4096)}
+TRAIN_RWKV = (8, 256, 32, 64)
+TRAIN_SSD = (2, 256, 64, 64, 64)
+# a gradient through the kernel's forward against autograd through the
+# plain version: both backward passes differentiate the plain function in
+# float32 and round once to bf16, but from forward values (the scans'
+# chunk states, attention's recomputed softmax) that differ by the kernel's
+# rounding, so each gradient is held to 2e-2 of its largest magnitude (bf16
+# carries 8 significant bits: one rounding is within 2^-8 of the value)
+TRAIN_GRAD_TOL = 2e-2
+# the first step's loss through the kernels against the plain versions:
+# the bf16 forward differs by the kernels' rounding in every layer
+TRAIN_LOSS_RTOL = 5e-3
+# the first-step gradient norm of TRAIN_ARCH cut to these depths, from two
+# inits (_init_witness)
+WITNESS_DEPTHS = (2, 4, 8, 16, 24)
+# train_elastic: launch/train.py's flags for the phase
+ELASTIC = dict(steps=8, checkpoint_every=8)
 
 RECORDS: list = []
 
@@ -1260,16 +1314,12 @@ def phase_serve_parity(torch, dev):
     emit({"phase": "serve_parity", **_serve_parity(torch, dev, SERVE_ARCH)})
 
 
-def _serve_trace(torch, prof) -> tuple:
-    """Device time by kind from a torch.profiler trace, {kind: [n, us]},
+def _by_kind(events) -> tuple:
+    """Device time by kind from (kernel name, us) pairs, {kind: [n, us]},
     and the ten kernel names that took the most device time."""
-    from torch.autograd import DeviceType
     kinds: dict = {}
     names: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name, us = e.name, e.time_range.elapsed_us()
+    for name, us in events:
         low = name.lower()
         kind = next((k for k in KERNEL_KINDS if k in name),
                     "memcpy" if "memcpy" in low or "memset" in low else
@@ -1282,6 +1332,13 @@ def _serve_trace(torch, prof) -> tuple:
         names[name[:80]] = names.get(name[:80], 0.0) + us
     top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
     return kinds, {n: us for n, us in top}
+
+
+def _serve_trace(torch, prof) -> tuple:
+    """Device time by kind from a torch.profiler trace (_by_kind)."""
+    from torch.autograd import DeviceType
+    return _by_kind((e.name, e.time_range.elapsed_us()) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
 
 
 def _chunking_control(torch, model, params, prompt, max_len, plain0, dev):
@@ -1309,8 +1366,8 @@ def _attention_saturation(torch, cfg, params, prompt) -> dict:
     seeded weights: the score spread and the largest probability per
     (head, query)."""
     from repro_torch.models import layers as L
-    from repro_torch.models.lm import layer
-    blk = layer(params["blocks"], 0)
+    from repro_torch.models.lm import unstack
+    blk = unstack(params["blocks"])[0]
     S = prompt.shape[1]
     x = L.norm_apply(blk["ln1"], L.embed_apply(params["embed"], prompt[:1]))
     q, k, _ = L._qkv(blk["attn"], x)
@@ -1874,7 +1931,8 @@ def _cpu_sweep(spec_kw: dict, executor: str = "serial") -> tuple:
 
 
 def phase_sweep(torch, dev, smi) -> dict:
-    """The §5 sweep at 1000 nodes under four executors; equal results.
+    """The §5 sweep at SWEEP_FLEET nodes under four executors; equal
+    results.
     The CPU run goes in a spawned process alongside the three card runs.
     Returns the forest launches of the in-process card runs (the process
     pool's workers count their own, which the parent does not see)."""
@@ -2510,6 +2568,488 @@ def phase_search(torch, dev, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- training
+
+def _train_cases(torch):
+    """The three training kernels' cases: (kernel, shape, the Function's
+    entry in ops, the plain version, the input maker, the work)."""
+    from repro_torch.kernels import ops, ref
+
+    def flash_inputs(gen, B, S, Skv, H, Hkv, D, causal, window, dtype, dev):
+        q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, Skv, Hkv, D), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        return q, k, v
+
+    out = []
+    for name, case in TRAIN_FLASH_CASES.items():
+        causal, window = case[6], case[7]
+        out.append(("flash_attention", name, case,
+                    lambda q, k, v, c=causal, w=window: ops.flash_attention(
+                        q, k, v, causal=c, window=w),
+                    lambda q, k, v, c=causal, w=window: ref.flash_attention_ref(
+                        q, k, v, causal=c, window=w),
+                    lambda gen, dt, dev, case=case: flash_inputs(
+                        gen, *case, dt, dev),
+                    lambda dname, case=case: (*_flash_work(
+                        *case, 2 if dname == "bfloat16" else 4), dname)))
+    out.append(("rwkv6_scan", "rwkv6", TRAIN_RWKV, ops.rwkv6_scan,
+                ref.rwkv6_scan_ref,
+                lambda gen, dt, dev: _rwkv_inputs(torch, gen, *TRAIN_RWKV,
+                                                  dt, dev),
+                lambda dname: _rwkv_work(*TRAIN_RWKV, dname)))
+    out.append(("mamba2_ssd", "zamba2", TRAIN_SSD, ops.mamba2_ssd,
+                ref.mamba2_ssd_ref,
+                lambda gen, dt, dev: _ssd_inputs(torch, gen, *TRAIN_SSD,
+                                                 dt, dev),
+                lambda dname: _ssd_work(*TRAIN_SSD, dname)))
+    return out
+
+
+def _outputs_and_grads(torch, fn, args, cots):
+    """fn(*args)'s outputs and the gradients of sum(out * cot) with respect
+    to every argument, through autograd."""
+    leaves = [a.detach().requires_grad_() for a in args]
+    with torch.enable_grad():
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+        grads = torch.autograd.grad(loss, leaves)
+    return [o.detach() for o in outs], list(grads)
+
+
+def phase_train_kernels(torch, dev):
+    """The three training kernels under autograd at the training shapes,
+    bf16: the Function's forward (the kernel; a launch per chunk for the
+    scans) torch.equal to the bare kernel call on the whole input and
+    within the kernel's bf16 tolerance of the plain version's outputs
+    (attention ATTN_TOL; a scan's y SCAN_TOL, its final state STATE_TOL),
+    and its gradients (the plain backward from the kernel's forward) within
+    TRAIN_GRAD_TOL of autograd through the plain version on the same
+    inputs and cotangents, each gradient relative to its largest plain
+    magnitude.  Attention's backward recomputes the plain forward, so its
+    gradients equal the plain version's: its kernel is seen by the output
+    check alone.  Times by CUDA events: the Function's forward alone and
+    forward + backward (the plain backward's share is the difference),
+    autograd through the plain version, and for attention
+    scaled_dot_product_attention's forward + backward (a yardstick)."""
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dtype, dname = torch.bfloat16, "bfloat16"
+    timing, max_err, fwd_max = {}, {}, {}
+    for kernel, case, shape, fn, plain, inputs, work in _train_cases(torch):
+        args = inputs(gen, dtype, dev)
+        with torch.no_grad():
+            bare = fn(*args)
+        bare = bare if isinstance(bare, tuple) else (bare,)
+        cots = [torch.randn(o.shape, generator=gen, device=dev)
+                for o in bare]
+        outs, grads = _outputs_and_grads(torch, fn, args, cots)
+        check(all(torch.equal(o, b) for o, b in zip(outs, bare)),
+              f"{kernel} {case}: the Function's forward != the bare kernel")
+        pouts, pgrads = _outputs_and_grads(torch, plain, args, cots)
+        # attention's output at ATTN_TOL; a scan's y at SCAN_TOL and its
+        # float32 final state at STATE_TOL (the scans' chunks launched from
+        # the previous chunk's state)
+        tols = ((ATTN_TOL[dname],) if kernel == "flash_attention"
+                else (SCAN_TOL[dname], STATE_TOL))
+        fwd_err = []
+        for i, (o, p, tol) in enumerate(zip(outs, pouts, tols)):
+            err = float((o.float() - p.float()).abs().max())
+            check(bool(torch.isfinite(o).all()) and torch.allclose(
+                o.float(), p.float(), rtol=tol, atol=tol),
+                f"{kernel} {case}: output {i} is {err} from the plain "
+                f"version's (tolerance {tol})")
+            fwd_err.append(err)
+        fwd_max[kernel] = max(fwd_max.get(kernel, 0.0), *fwd_err)
+        errs = []
+        for i, (g, p) in enumerate(zip(grads, pgrads)):
+            scale = float(p.float().abs().max())
+            err = float((g.float() - p.float()).abs().max())
+            check(bool(torch.isfinite(g).all())
+                  and err <= TRAIN_GRAD_TOL * max(scale, 1e-30),
+                  f"{kernel} {case}: gradient {i} is {err} from the plain "
+                  f"version's (largest {scale})")
+            errs.append(err / max(scale, 1e-30))
+        max_err[kernel] = max(max_err.get(kernel, 0.0), max(errs))
+
+        def fwd():
+            leaves = [a.detach().requires_grad_() for a in args]
+            with torch.enable_grad():
+                return fn(*leaves)
+
+        def fwd_bwd(f=fn):
+            _outputs_and_grads(torch, f, args, cots)
+        rec = {"shape": shape, "max_abs_err": fwd_err,
+               "relative_grad_err": errs,
+               "forward_ms": _time_ms(torch, fwd, n=10, warmup=2),
+               "ms": _time_ms(torch, fwd_bwd, n=10, warmup=2),
+               "plain_ms": _time_ms(torch, lambda: fwd_bwd(plain), n=3,
+                                    warmup=1)}
+        rec["plain_backward_share"] = 1.0 - rec["forward_ms"] / rec["ms"]
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(*work(dname))
+        rec["library_ms"] = None
+        if kernel == "flash_attention":
+            qkv = [a.transpose(1, 2) for a in args]
+
+            def sdpa():
+                leaves = [a.detach().requires_grad_() for a in qkv]
+                with torch.enable_grad():
+                    o = F.scaled_dot_product_attention(*leaves,
+                                                       is_causal=True)
+                    torch.autograd.grad(o.float().sum(), leaves)
+            rec["library_ms"] = _time_ms(torch, sdpa, n=10, warmup=2)
+        timing[f"{kernel}/{case}"] = rec
+        del args, bare, outs, grads, pouts, pgrads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_kernels", "dtype": dname,
+          "grad_tolerance": TRAIN_GRAD_TOL, "timing": timing,
+          "max_abs_err": fwd_max, "max_relative_grad_err": max_err})
+    return timing, fwd_max, max_err
+
+
+def _train_launches(cfg, steps: int) -> dict:
+    """Launches of ``steps`` train steps of ``cfg`` at TRAIN_BATCH x
+    TRAIN_SEQ: every layer's kernels run once in the forward and once more
+    when the layer is recomputed in the backward (remat "full"), per
+    microbatch; the scans launch once per chunk of their sequence."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.lm import n_shared_invocations
+    from repro_torch.models.steps import n_microbatches
+    per = n_microbatches(cfg, TRAIN_BATCH) * (1 if cfg.remat == "none"
+                                              else 2) * steps
+    if cfg.family == "dense":
+        want = {"flash_attention": cfg.n_layers * per}
+    else:
+        chunks = TRAIN_SEQ // ref.divisor_chunk(
+            TRAIN_SEQ, ref.RWKV_CHUNK if cfg.family == "ssm"
+            else ref.SSD_CHUNK)
+        if cfg.family == "ssm":
+            want = {"rwkv6_scan": cfg.n_layers * chunks * per}
+        else:
+            want = {"mamba2_ssd": cfg.n_layers * chunks * per,
+                    "flash_attention": n_shared_invocations(cfg) * per}
+    return {**dict.fromkeys(ops.KERNELS, 0), **want}
+
+
+def _train_profile(torch, step_fn, state, batch) -> dict:
+    """One more step under torch.profiler (device activity only): the
+    card's idle share over it and its device time by kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # a recurrent step launches ~10^5 kernels: read the raw device events,
+    # without building the profiler's per-event Python objects
+    kinds, top = _by_kind(
+        (e.name(), e.duration_ns() / 1e3)
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA)
+    busy = sum(us for _, us in kinds.values()) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall if kinds else None,
+            "device_us": {k: {"n": n, "total_us": us}
+                          for k, (n, us) in kinds.items()},
+            "top_kernels_us": top}
+
+
+def _first_gradients(torch, state, grad_norm, opt) -> dict:
+    """What the first step's Adam moments say of its gradients: after one
+    step m = (1 - b1) g_c and v = (1 - b2) g_c^2, g_c the gradient scaled by
+    the clip, min(1, grad_clip / |g|).  The leaves whose gradient is not
+    finite or all zero; the five largest gradient norms by leaf; and the
+    share of elements whose clipped gradient is below Adam's eps, which move
+    less than lr / 2 (at count 1 an element moves lr |g_c| / (|g_c| +
+    eps))."""
+    from repro_torch.parallel.axes import tree_leaves_with_path
+    scale = min(1.0, opt.grad_clip / max(grad_norm, 1e-9)) \
+        if opt.grad_clip > 0 else 1.0
+    out = {"not_finite": [], "all_zero": [], "clip_scale": scale}
+    norms, damped, total = {}, 0, 0
+    for path, mom in tree_leaves_with_path(state["opt"]["m"]):
+        name = "/".join(path)
+        g_c = mom / (1 - opt.b1)
+        if not bool(torch.isfinite(g_c).all()):
+            out["not_finite"].append(name)
+        elif not bool(g_c.any()):
+            out["all_zero"].append(name)
+        norms[name] = float(g_c.norm()) / scale
+        damped += int((g_c.abs() < opt.eps).sum())
+        total += g_c.numel()
+    out["largest_norms"] = dict(sorted(norms.items(),
+                                       key=lambda kv: -kv[1])[:5])
+    out["adam_damped_share"] = damped / total
+    return out
+
+
+def _batch_loss(torch, cfg, params, tokens, ctx=None) -> float:
+    """The train step's loss of ``tokens`` at ``params`` without a step:
+    the microbatches' mean, under no_grad (the bare kernels, or the plain
+    versions with ``ctx``)."""
+    from repro_torch.models.layers import NO_SHARD
+    from repro_torch.models.steps import n_microbatches, train_loss
+    A = n_microbatches(cfg, tokens.shape[0])
+    with torch.no_grad():
+        return float(sum(
+            train_loss(cfg, params, mb.long(), ctx or NO_SHARD)[0]
+            for mb in tokens.reshape(A, tokens.shape[0] // A, -1)) / A)
+
+
+def _fan_in_d_model(cfg, params):
+    """Rescale, in place, seeded attention projections from the
+    reference's fan-in (the second-to-last axis, repro/parallel/axes.py:
+    199: the heads of wq/wk/wv, the head dim of wo) to the fan-in of all
+    their input axes (d_model; heads x head_dim for wo), the draw a 2-d
+    (d_in, d_out) projection gets."""
+    attn = params["blocks"]["attn"]
+    for name in ("wq", "wk", "wv"):          # (L, d_model, heads, head_dim)
+        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
+    attn["wo"].mul_(attn["wo"].shape[-3] ** -0.5)   # (L, heads, hd, d)
+
+
+def _first_grad_norm(torch, cfg, params, tokens, depth: int) -> float:
+    """The first step's gradient norm of ``cfg`` cut to its first
+    ``depth`` layers: the microbatches' gradients summed in float32 and
+    divided by their count, as make_train_step does."""
+    from repro_torch.models.steps import n_microbatches, train_loss
+    from repro_torch.parallel.axes import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    sub = {**params, "blocks": tree_map(lambda t: t[:depth],
+                                        params["blocks"])}
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(sub)]
+    A = n_microbatches(cut, tokens.shape[0])
+    acc = [torch.zeros(p.shape, device=p.device) for p in leaves]
+    for mb in tokens.reshape(A, tokens.shape[0] // A, -1):
+        with torch.enable_grad():
+            loss, aux = train_loss(cut, tree_unflatten(sub, leaves),
+                                   mb.long())
+            grads = torch.autograd.grad(loss + aux, leaves,
+                                        allow_unused=True)
+        for a, g in zip(acc, grads):
+            if g is not None:
+                a.add_(g.float())
+    return float(torch.sqrt(sum(((a / A) ** 2).sum() for a in acc)))
+
+
+def _init_witness(torch, dev, cfg, opt, batches) -> dict:
+    """Why the loss of TRAIN_ARCH does not fall from the reference's init,
+    measured: the first step's gradient norm at WITNESS_DEPTHS from the
+    reference's init (seed 0) and from the same draw with its attention
+    projections at the fan-in of their input axes (_fan_in_d_model); then
+    the train steps again from the second init, with the loss of batch 0
+    before each step and after the last.  Held: that run's loss falls from
+    the first step to the last (the train path learns), on the stream and
+    on batch 0.  Not counted in the launches."""
+    from repro_torch.models.steps import init_train_state, make_train_step
+    state = init_train_state(cfg, 0, opt, device=dev)
+    norms = {}
+    for init in ("reference", "fan_in_d_model"):
+        if init == "fan_in_d_model":
+            _fan_in_d_model(cfg, state["params"])
+        norms[init] = {d: _first_grad_norm(torch, cfg, state["params"],
+                                           batches[0], d)
+                       for d in WITNESS_DEPTHS}
+    step_fn, _ = make_train_step(cfg, opt)
+    losses, fixed = [], []
+    for s in range(TRAIN_STEPS[cfg.name]):
+        fixed.append(_batch_loss(torch, cfg, state["params"], batches[0]))
+        state, m = step_fn(state, {"tokens": batches[s]})
+        losses.append(float(m["loss"]))
+    fixed.append(_batch_loss(torch, cfg, state["params"], batches[0]))
+    del state
+    torch.cuda.empty_cache()
+    check(losses[-1] < losses[0] and fixed[-1] < fixed[0],
+          f"train {cfg.name}: from the fan-in-d_model init the loss did not "
+          f"fall (stream {losses}, batch 0 {fixed})")
+    return {"depths": list(WITNESS_DEPTHS), "first_grad_norm": norms,
+            "fan_in_d_model_losses": losses,
+            "fan_in_d_model_batch0_losses": fixed}
+
+
+def phase_train_step(torch, dev, arch: str) -> tuple:
+    """``arch`` at full width and depth (bf16 weights, float32 moments) on
+    the card: TRAIN_STEPS[arch] train steps of launch/train.py's global
+    batch (16 x 256, the config's accum_steps) from seeded weights under
+    the trainer's AdamWConfig(warmup_steps=5, total_steps=steps); the
+    launch counts zeroed just before each step and read just after (the
+    loss of batch 0 before each step and after the last, which tells the
+    parameters' effect from the batches', runs outside them); the first
+    step's loss against the same loss through the plain versions on the
+    card; after the first step every parameter leaf's gradient (from its
+    first moment, _first_gradients) finite and not all zero; then one
+    profiled step.  Whether the loss fell is recorded, not held: from the
+    reference's init TRAIN_ARCH's first gradient norm is ~6e10 at full
+    depth, so with the clip at 1 Adam leaves nearly every element in
+    place; for TRAIN_ARCH, _init_witness measures that and holds that the
+    same steps from an init with the attention projections' fan-in fixed
+    do lower the loss."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import param_count
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.steps import (init_train_state, make_train_step,
+                                          n_microbatches)
+    from repro_torch.optim import AdamWConfig
+    cfg = get_arch(arch)
+    steps = TRAIN_STEPS[arch]
+    opt = AdamWConfig(warmup_steps=5, total_steps=steps)
+    stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+    batches = [torch.as_tensor(stream.batch(s, 0, 1)["tokens"], device=dev)
+               for s in range(steps + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, 0, opt, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    plain_loss = _batch_loss(torch, cfg, state["params"], batches[0],
+                             ShardCtx(impl="torch"))
+    step_fn, _ = make_train_step(cfg, opt)
+    losses, secs, norms, fixed = [], [], [], []
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    for s in range(steps):
+        fixed.append(_batch_loss(torch, cfg, state["params"], batches[0]))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, {"tokens": batches[s]})
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        for k, n in ops.launch_counts().items():
+            launches[k] += n
+        norms.append(float(m["grad_norm"]))
+        if s == 0:
+            grads = _first_gradients(torch, state, norms[0], opt)
+    fixed.append(_batch_loss(torch, cfg, state["params"], batches[0]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = _train_launches(cfg, steps)
+    check(launches == want, f"train {arch}: launches {launches}, want {want}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train {arch}: loss or grad norm not finite ({losses}, {norms})")
+    check(not grads["not_finite"] and not grads["all_zero"],
+          f"train {arch}: gradients not finite in {grads['not_finite']}, "
+          f"all zero in {grads['all_zero']}")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(rel <= TRAIN_LOSS_RTOL, f"train {arch}: the first step's loss "
+          f"{losses[0]} is {rel} from the plain versions' {plain_loss}")
+    med = statistics.median(secs[1:] if len(secs) > 1 else secs)
+    record = {"phase": "train_step" if arch == TRAIN_ARCH
+              else "train_step_" + arch.split("-")[0],
+              "arch": arch, "params": param_count(cfg), "steps": steps,
+              "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+              "accum_steps": n_microbatches(cfg, TRAIN_BATCH),
+              "remat": cfg.remat, "init_s": init_s,
+              "state_gb": state_gb, "losses": losses, "grad_norms": norms,
+              "batch0_losses": fixed,
+              "loss_fell": losses[-1] < losses[0],
+              "plain_first_loss": plain_loss,
+              "first_loss_relative_gap": rel, "step_s": secs,
+              "median_step_s": med,
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+              "peak_memory_gb": peak_gb, "launches": launches,
+              "first_gradients": grads,
+              "profiled_step": _train_profile(
+                  torch, step_fn, state, {"tokens": batches[steps]})}
+    del state
+    torch.cuda.empty_cache()
+    if arch == TRAIN_ARCH:
+        record["init_witness"] = _init_witness(torch, dev, cfg, opt, batches)
+    emit(record)
+    del batches
+    torch.cuda.empty_cache()
+    return launches, record
+
+
+def phase_train_elastic(torch, dev) -> tuple:
+    """repro_torch.launch.train.main on TRAIN_ARCH at full width (ATLAS on,
+    the default fail rate) with its checkpoints under a temporary
+    directory: every save and restore timed (bytes, seconds) through the
+    CheckpointManager the trainer uses; the launch counts zeroed just
+    before and read just after; at least ELASTIC["steps"] committed steps
+    and a finite last loss (whether it is below the first is recorded, see
+    phase_train_step); a restore with its digests checked: the
+    trainer's own if chaos rolled it back, else the last checkpoint
+    restored after the run and held torch.equal to the state it saved."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    saves, restores, last = [], [], {}
+    orig_save, orig_restore = CheckpointManager.save, CheckpointManager.restore
+
+    def save(self, step, tree, *, block=False):
+        t0 = time.perf_counter()
+        orig_save(self, step, tree, block=block)
+        self.wait()
+        d = self.root / f"step_{step:09d}"
+        saves.append({"step": step, "s": time.perf_counter() - t0,
+                      "bytes": sum(p.stat().st_size for p in d.iterdir())})
+        last.update(root=self.root, step=step, tree=tree)
+
+    def restore(self, step, like_tree, **kw):
+        t0 = time.perf_counter()
+        out = orig_restore(self, step, like_tree, **kw)
+        torch.cuda.synchronize()
+        restores.append({"step": step, "s": time.perf_counter() - t0,
+                         "verified": kw.get("verify", True)})
+        return out
+
+    with tempfile.TemporaryDirectory() as td:
+        free_gb = shutil.disk_usage(td).free / 1e9
+        argv = ["--arch", TRAIN_ARCH, "--full-config", "--steps",
+                str(ELASTIC["steps"]), "--checkpoint-every",
+                str(ELASTIC["checkpoint_every"]), "--checkpoint-dir", td]
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+        try:
+            ops.reset_launch_counts()
+            with contextlib.redirect_stdout(sys.stderr):
+                out = train.main(argv)
+            launches = ops.launch_counts()
+        finally:
+            CheckpointManager.save = orig_save
+            CheckpointManager.restore = orig_restore
+        from repro_torch.configs import get_arch
+        want = _train_launches(get_arch(TRAIN_ARCH), out["committed"])
+        check(launches == want, f"train_elastic: launches {launches}, want "
+              f"{want}")
+        check(out["committed"] >= ELASTIC["steps"]
+              and np.isfinite(out["final_loss"]), f"train_elastic: {out}")
+        check(bool(saves), "train_elastic: no checkpoint was written")
+        after_run = None
+        if not restores:
+            mgr = CheckpointManager(last["root"], keep=2, async_write=False)
+            t0 = time.perf_counter()
+            got = mgr.restore(last["step"], last["tree"])
+            torch.cuda.synchronize()
+            from repro_torch.parallel.axes import tree_leaves
+            equal = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(last["tree"])))
+            after_run = {"step": last["step"], "s": time.perf_counter() - t0,
+                         "verified": True, "equal": equal}
+            check(equal, "train_elastic: the restored checkpoint != the "
+                  "state the trainer saved")
+            del got
+        last.clear()
+    emit({"phase": "train_elastic", "argv": argv, "result": out,
+          "loss_fell": out["final_loss"] < out["first_loss"],
+          "disk_free_gb": free_gb,
+          "saves": saves, "restores": restores,
+          "restore_after_run": after_run, "launches": launches})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _tensor_cores(build: dict, kernel: str):
     """The build phase's SASS counts of ``kernel``'s instantiations."""
     tc = build["tensor_core_instructions"]
@@ -2585,6 +3125,24 @@ def main(argv=None) -> int:
     by_path["obs"] = phase_obs(torch, dev, smi, cfg, slice_result, trained,
                                serve_async_broker)
     by_path["online_bench"] = phase_online_bench(torch, dev, smi)
+    train_timing, train_fwd_err, train_err = phase_train_kernels(torch, dev)
+    trained_by = {arch: phase_train_step(torch, dev, arch)[0]
+                  for arch in TRAIN_ARCHS}
+    trained_by["elastic"] = phase_train_elastic(torch, dev)
+    train_paths = {"train_step": trained_by[TRAIN_ARCH],
+                   "train_step_rwkv6": trained_by["rwkv6-1.6b"],
+                   "train_step_zamba2": trained_by["zamba2-1.2b"],
+                   "train_elastic": trained_by["elastic"]}
+
+    def train_fields(k):
+        """The training paths' launches of kernel k and its train_kernels
+        record at each training shape."""
+        by = {p: n[k] for p, n in train_paths.items() if n[k]}
+        return by, {"train": {key.split("/")[1]: rec
+                              for key, rec in train_timing.items()
+                              if key.startswith(k + "/")},
+                    "train_max_abs_err": train_fwd_err[k],
+                    "train_max_relative_grad_err": train_err[k]}
     kernels = []
     for k in FOREST_KERNELS:
         main_t = timing[k][main_rows[k]]
@@ -2606,12 +3164,16 @@ def main(argv=None) -> int:
     for k in ATTN_KERNELS:
         main_t = attn_timing[k]["main/bfloat16"]
         zamba_t = attn_timing[k]["zamba2/bfloat16"]
+        by_train, train_rec = train_fields(k) if k == "flash_attention" \
+            else ({}, {})
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
-            "launches": serve_launches[k] + zamba_launches[k],
+            "launches": serve_launches[k] + zamba_launches[k]
+            + sum(by_train.values()),
             "launches_by_path": {"serve": serve_launches[k],
-                                 "serve_zamba2": zamba_launches[k]},
+                                 "serve_zamba2": zamba_launches[k],
+                                 **by_train},
             "max_abs_err": attn_err[k], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
@@ -2626,14 +3188,18 @@ def main(argv=None) -> int:
                 "library_ms")},
             "ptxas": {n: u for n, u in build["attention_kernels"].items()
                       if n.startswith(k)},
-            "tensor_core_instructions": _tensor_cores(build, k)})
+            "tensor_core_instructions": _tensor_cores(build, k),
+            **train_rec})
     for k, launches, device_ms, cases in (
             ("rwkv6_scan", rwkv_launches, rwkv_ms, RWKV_CASES),
             ("mamba2_ssd", zamba_launches, zamba_ms, SSD_CASES)):
         main_t = scan_times[k]["main/bfloat16"]
+        by_train, train_rec = train_fields(k)
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k], "launches": launches[k],
+            "replaces": REPLACES[k],
+            "launches": launches[k] + sum(by_train.values()),
+            "launches_by_path": {SERVE_PATH[k]: launches[k], **by_train},
             "max_abs_err": scan_err[k],
             "state_max_abs_err": scan_state_err[k], "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
@@ -2644,7 +3210,8 @@ def main(argv=None) -> int:
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             "ptxas": {n: u for n, u in build["scan_kernels"].items()
                       if n.startswith(k)},
-            "tensor_core_instructions": _tensor_cores(build, k)})
+            "tensor_core_instructions": _tensor_cores(build, k),
+            **train_rec})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if args.out:
         out = pathlib.Path(args.out)

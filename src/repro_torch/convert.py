@@ -5,9 +5,9 @@ The JAX package's predictor serialises its trained state as a plain dict
 forest parameter objects with numpy ``feat_idx`` / ``thresholds`` /
 ``leaves`` attributes.  Its fitted GLM keeps ``mu`` / ``sd`` / ``wb`` and its
 MLP ``mu`` / ``sd`` / ``params`` (w1, b1, w2, b2).  Its model zoo's
-parameters are nested dicts of arrays.  These functions read such objects
-by those attributes and keys alone, so this module imports nothing from the
-JAX package."""
+parameters and train state are nested dicts of arrays.  These functions
+read such objects by those attributes and keys alone, so this module
+imports nothing from the JAX package."""
 
 from __future__ import annotations
 
@@ -89,3 +89,13 @@ def lm_params_from_jax(tree, *, device=None) -> dict:
     as the JAX ``Model`` with ``tree``."""
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def train_state_from_jax(state, *, device=None) -> dict:
+    """The port's train state, on ``device``, from the JAX package's
+    ``{"params", "opt": {"m", "v", "count"}, "step"}`` (arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``): parameters and moments in their
+    dtypes (bf16 included), ``count`` and ``step`` as 0-dim int32
+    tensors."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), state)

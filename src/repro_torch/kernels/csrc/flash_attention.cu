@@ -583,7 +583,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_attention_mma_kernel(
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = ex2((m[i] - m_new) * scale_log2);
-      const float m_log2 = m_new * scale_log2;
+      // a row that has seen no visible key yet (a window narrower than the
+      // query tile) keeps p = 0: NEG_INF * scale_log2 is rounded, and the
+      // fmaf below would put that rounding error (up to ~1e31) in the
+      // exponent, an inf that alpha = 0 later turns into NaN
+      const float m_log2 = m_new == NEG_INF ? 0.0f : m_new * scale_log2;
       m[i] = m_new;
       float sum = 0.0f;
 #pragma unroll

@@ -8,10 +8,23 @@ Every op takes ``impl``:
             when asked for explicitly (``chip_smoke.py`` compares the two).
 
 A launch counter per kernel counts the launches made through these
-wrappers, so a run can show that its main path went through the kernels."""
+wrappers, so a run can show that its main path went through the kernels.
+
+Under autograd (grad enabled and an input that requires grad) the three
+training kernels run inside a ``torch.autograd.Function``: the forward is
+the same kernel (or, on the CPU, the same plain version) and the backward is
+plain torch, as the reference trains through ``ref.py`` on every impl.
+``flash_attention``'s backward recomputes the plain version under autograd
+(what the reference's ``jax.checkpoint`` blocks do); the scans' forward runs
+chunk by chunk, one kernel launch per chunk from the previous chunk's final
+state (the kernels return only the final state, and the adjoint needs each
+chunk's first), and their backward is the chunked adjoint
+(``ref.RWKV6Scan``, ``ref.SSDScan``).  Every forward launch counts, the
+recomputation of a rematerialised layer's forward included."""
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -117,15 +130,47 @@ def forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves, n_trees,
     return out
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, impl=None):
-    """Blockwise attention, GQA, right-aligned queries: q (B, S, H, D),
-    k/v (B, Skv, Hkv, D) -> (B, S, H, D)."""
-    if _resolve(impl, q, "q") == "torch":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+def _under_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is ``attend(q, k, v)`` (the kernel or the
+    plain version) and whose backward differentiates the plain version,
+    recomputed from q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, attend):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return attend(q, k, v)
+
+    @staticmethod
+    def backward(ctx, gout):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = ref.flash_attention_ref(*qkv, causal=ctx.causal,
+                                          window=ctx.window)
+            grads = torch.autograd.grad(out, qkv, gout)
+        return (*grads, None, None, None)
+
+
+def _flash_kernel(q, k, v, *, causal, window):
     from repro_torch.kernels import attention as ak
     out = ak.flash_attention(q, k, v, causal=causal, window=window)
     _count("flash_attention")
     return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, impl=None):
+    """Blockwise attention, GQA, right-aligned queries: q (B, S, H, D),
+    k/v (B, Skv, Hkv, D) -> (B, S, H, D)."""
+    attend = functools.partial(
+        ref.flash_attention_ref if _resolve(impl, q, "q") == "torch"
+        else _flash_kernel, causal=causal, window=window)
+    if _under_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, attend)
+    return attend(q, k, v)
 
 
 def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
@@ -139,25 +184,38 @@ def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
     return out
 
 
-def rwkv6_scan(r, k, v, w, u, state0, *, impl=None):
-    """WKV6 recurrence: r, k, v, w (B, S, H, Dh); u (H, Dh); state0
-    (B, H, Dh, Dh) float32 -> (y (B, S, H, Dh) in r's dtype, final state
-    float32)."""
-    if _resolve(impl, r, "r") == "torch":
-        return ref.rwkv6_scan_ref(r, k, v, w, u, state0)
+def _rwkv6_kernel(r, k, v, w, u, state0):
     from repro_torch.kernels import recurrence as rk
     out = rk.rwkv6_scan(r, k, v, w, u, state0)
     _count("rwkv6_scan")
     return out
 
 
-def mamba2_ssd(x, dt, A, B, C, state0, *, impl=None):
-    """SSD recurrence: x (B, S, H, P); dt (B, S, H); A (H,) float32; B, C
-    (B, S, N); state0 (B, H, P, N) float32 -> (y (B, S, H, P) in x's dtype,
-    final state float32)."""
-    if _resolve(impl, x) == "torch":
-        return ref.mamba2_ssd_ref(x, dt, A, B, C, state0)
+def rwkv6_scan(r, k, v, w, u, state0, *, impl=None):
+    """WKV6 recurrence: r, k, v, w (B, S, H, Dh); u (H, Dh); state0
+    (B, H, Dh, Dh) float32 -> (y (B, S, H, Dh) in r's dtype, final state
+    float32).  Under autograd: ``ref.RWKV6Scan``, a launch per chunk."""
+    scan = ref.rwkv6_scan_ref if _resolve(impl, r, "r") == "torch" \
+        else _rwkv6_kernel
+    if _under_grad(r, k, v, w, u, state0):
+        return ref.rwkv6_scan_chunked(r, k, v, w, u, state0, scan=scan)
+    return scan(r, k, v, w, u, state0)
+
+
+def _ssd_kernel(x, dt, B, C, A, state0):
     from repro_torch.kernels import recurrence as rk
     out = rk.mamba2_ssd(x, dt, A, B, C, state0)
     _count("mamba2_ssd")
     return out
+
+
+def mamba2_ssd(x, dt, A, B, C, state0, *, impl=None):
+    """SSD recurrence: x (B, S, H, P); dt (B, S, H); A (H,) float32; B, C
+    (B, S, N); state0 (B, H, P, N) float32 -> (y (B, S, H, P) in x's dtype,
+    final state float32).  Under autograd: ``ref.SSDScan``, a launch per
+    chunk."""
+    scan = ref.ssd_chunk_ref if _resolve(impl, x) == "torch" \
+        else _ssd_kernel
+    if _under_grad(x, dt, A, B, C, state0):
+        return ref.mamba2_ssd_chunked(x, dt, A, B, C, state0, scan=scan)
+    return scan(x, dt, B, C, A, state0)

@@ -24,7 +24,11 @@ last chunk is ragged.
 
 The recurrences (RWKV6's WKV6 scan, Mamba2's SSD scan and their one-step
 decode forms) are the reference's forward oracles: a loop over t in
-float32, y cast back to the input's dtype."""
+float32, y cast back to the input's dtype.  Their gradients are the
+reference's chunked adjoints (``repro/kernels/ref.py:_rwkv6_fwd/_rwkv6_bwd``
+and ``_ssd_fwd/_ssd_bwd``), as ``torch.autograd.Function``s whose forward
+is any scan of the chunk (the plain loop here, or the CUDA kernel through
+``kernels.ops``)."""
 
 from __future__ import annotations
 
@@ -193,9 +197,9 @@ def decode_attention_ref(q, k, v, kv_len, *, window=0, kv_chunk=1024):
 # Recurrences: RWKV6 (WKV6) and Mamba2 (SSD)
 # ---------------------------------------------------------------------------
 #
-# Forward only, sequential in t, in float32, with y cast back to the input's
-# dtype: the reference's oracles (repro/kernels/ref.py:rwkv6_scan_ref,
-# mamba2_ssd_ref) without their custom VJPs, which come with training.
+# Sequential in t, in float32, with y cast back to the input's dtype: the
+# reference's oracles (repro/kernels/ref.py:rwkv6_scan_ref, mamba2_ssd_ref).
+# Their custom VJPs are RWKV6Scan and SSDScan below.
 
 def rwkv6_scan_ref(r, k, v, w, u, state0):
     """Sequential WKV6: per head, y_t = r_t (S_{t-1} + diag(u) k_t^T v_t),
@@ -312,3 +316,222 @@ def mamba2_ssd_chunked_ref(x, dt, A, Bmat, Cmat, state0, *, chunk=64,
         state = torch.exp(cs[:, -1])[..., None, None] * state + torch.einsum(
             "bshp,bsn->bhpn", rnd(f[..., None] * X), Bc)
     return y.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# The recurrences' chunked adjoints (training)
+# ---------------------------------------------------------------------------
+#
+# Both recurrences are linear in the state, so the backward pass is the
+# analytic adjoint recurrence run in reverse, with the forward states
+# recomputed chunk by chunk from the states at the chunk boundaries, which
+# the forward saves once per chunk: O(S / c + c) states, where autograd
+# through the stepwise loop would keep every step's state.  The chunk is the
+# reference's: the largest divisor of S up to 128.
+#
+# Within a chunk the two recurrences (the states forward, the state adjoints
+# backward) run step by step for WKV6, one fused multiply-add per step (its
+# per-channel decays may be exactly 0, so no log-domain form), and as
+# products with the chunk's decay matrix for the SSD (one scalar decay per
+# step and head); every gradient is then one batched product over the
+# chunk's steps.  The reference computes the same terms inside its per-step
+# scan body.
+
+RWKV_CHUNK = 128
+SSD_CHUNK = 128
+
+
+def divisor_chunk(n: int, want: int) -> int:
+    """Largest divisor of n that is <= want (``repro/kernels/ref.py:47``)."""
+    c = min(want, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def _time_major(x, c0, c):
+    """Steps c0 .. c0 + c - 1 of a (B, S, ...) tensor as float32 (c, B, ...)."""
+    return x[:, c0:c0 + c].float().movedim(1, 0)
+
+
+def _chunked_forward(scan, xs, rest, state0, chunk):
+    """Run ``scan(*chunk_inputs, *rest, state)`` chunk by chunk from state0.
+    Returns y (B, S, ...) in the scan's dtype, the final state and the
+    states each chunk started from, stacked (n_chunks, ...)."""
+    S = xs[0].shape[1]
+    state, ys, bounds = state0.float(), [], []
+    for c0 in range(0, S, chunk):
+        bounds.append(state)
+        y, state = scan(*(x[:, c0:c0 + chunk].contiguous() for x in xs),
+                        *rest, state)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state, torch.stack(bounds)
+
+
+def _rwkv6_bwd(r, k, v, w, u, bounds, chunk, ybar, sbar):
+    """The WKV6 adjoint: gradients of (r, k, v, w, u, state0) given those
+    of y (B, S, H, Dh) and of the final state, all float32."""
+    B, S, H, Dh = r.shape
+    uf = u.float()
+    grads = [torch.empty(B, S, H, Dh, device=r.device) for _ in range(4)]
+    ubar = torch.zeros(H, Dh, device=r.device)
+    sbar = sbar.float()
+    for ci in reversed(range(S // chunk)):
+        c0 = ci * chunk
+        rc, kc, vc, wc, yb = (_time_major(t, c0, chunk)
+                              for t in (r, k, v, w, ybar))   # (c, B, H, Dh)
+        kv = kc[..., :, None] * vc[..., None, :]             # (c, B, H, K, V)
+        # the chunk's states: states[t] = S_{t-1}, the state before step t
+        states = torch.empty((chunk + 1,) + sbar.shape, device=r.device)
+        states[0] = bounds[ci]
+        for t in range(chunk):
+            torch.addcmul(kv[t], wc[t][..., None], states[t],
+                          out=states[t + 1])
+        s_prev = states[:chunk]
+        # the state adjoints: sbars[t] = dL/dS_t, S_t the state after step t
+        ry = rc[..., :, None] * yb[..., None, :]             # output path
+        sbars = torch.empty_like(s_prev)
+        sbars[chunk - 1] = sbar
+        for t in range(chunk - 1, 0, -1):
+            torch.addcmul(ry[t], wc[t][..., None], sbars[t], out=sbars[t - 1])
+        sbar = torch.addcmul(ry[0], wc[0][..., None], sbars[0])
+        m = s_prev + uf[None, None, :, :, None] * kv
+        yv = (yb * vc).sum(-1)                               # (c, B, H)
+        rbar = torch.einsum("tbhkv,tbhv->tbhk", m, yb)
+        kbar = torch.einsum("tbhkv,tbhv->tbhk", sbars, vc) \
+            + uf * rc * yv[..., None]
+        vbar = torch.einsum("tbhkv,tbhk->tbhv", sbars, kc) \
+            + yb * (rc * uf * kc).sum(-1)[..., None]
+        wbar = (sbars * s_prev).sum(-1)
+        ubar += torch.einsum("tbhk,tbh->hk", rc * kc, yv)
+        for g, gc in zip(grads, (rbar, kbar, vbar, wbar)):
+            g[:, c0:c0 + chunk] = gc.movedim(0, 1)
+    return (*grads, ubar, sbar)
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """WKV6 with the chunked adjoint as its backward.  ``scan(r, k, v, w,
+    u, state) -> (y, state)`` computes one chunk's forward: the plain
+    ``rwkv6_scan_ref`` or the CUDA kernel (``kernels.ops.rwkv6_scan``)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0, scan):
+        chunk = divisor_chunk(r.shape[1], RWKV_CHUNK)
+        y, state, bounds = _chunked_forward(scan, (r, k, v, w), (u,), state0,
+                                            chunk)
+        ctx.save_for_backward(r, k, v, w, u, bounds)
+        ctx.chunk, ctx.state_dtype = chunk, state0.dtype
+        return y, state
+
+    @staticmethod
+    def backward(ctx, ybar, sbar):
+        r, k, v, w, u, bounds = ctx.saved_tensors
+        rb, kb, vb, wb, ub, sb = _rwkv6_bwd(r, k, v, w, u, bounds, ctx.chunk,
+                                            ybar, sbar)
+        return (rb.to(r.dtype), kb.to(k.dtype), vb.to(v.dtype),
+                wb.to(w.dtype), ub.to(u.dtype), sb.to(ctx.state_dtype), None)
+
+
+def rwkv6_scan_chunked(r, k, v, w, u, state0, scan=rwkv6_scan_ref):
+    """``rwkv6_scan_ref``'s function, differentiable by the chunked adjoint
+    (the reference's custom VJP), its forward run chunk by chunk through
+    ``scan``."""
+    return RWKV6Scan.apply(r, k, v, w, u, state0, scan)
+
+
+def _ssd_bwd(x, dt, A, Bmat, Cmat, bounds, chunk, ybar, sbar):
+    """The SSD adjoint: gradients of (x, dt, A, B, C, state0) given those of
+    y (B, S, H, P) and of the final state, all float32.
+
+    The decay is one scalar per (step, head), so within a chunk both
+    recurrences are products with the chunk's decay matrix
+    L[t, s] = exp(cs_t - cs_s) (s <= t; cs the inclusive cumulative sum of
+    dt A over the chunk, every exponent <= 0), the form of the bf16 SSD
+    kernel (``mamba2_ssd_chunked_ref``): S_t = exp(cs_t) S_0 + sum_s L[t, s]
+    dt_s x_s B_s^T, and the adjoint the same with L transposed."""
+    Bb, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    Af = A.float()
+    gx = torch.empty(Bb, S, H, P, device=x.device)
+    gdt = torch.empty(Bb, S, H, device=x.device)
+    gB = torch.empty(Bb, S, N, device=x.device)
+    gC = torch.empty(Bb, S, N, device=x.device)
+    Abar = torch.zeros(H, device=x.device)
+    sbar = sbar.float()
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+
+    def by_step(flat):                       # (B, H, c, P*N) -> (c, B, H, P, N)
+        return flat.reshape(Bb, H, chunk, P, N).permute(2, 0, 1, 3, 4)
+
+    def flat(t):                             # (c, B, H, P, N) -> (B, H, c, P*N)
+        return t.permute(1, 2, 0, 3, 4).reshape(Bb, H, chunk, P * N)
+
+    for ci in reversed(range(S // chunk)):
+        c0 = ci * chunk
+        xc, dtc, bc, cc, yb = (_time_major(t, c0, chunk)
+                               for t in (x, dt, Bmat, Cmat, ybar))
+        log_decay = dtc * Af                                 # (c, B, H)
+        decay = torch.exp(log_decay)
+        cs = torch.cumsum(log_decay, dim=0).permute(1, 2, 0)  # (B, H, c)
+        L = torch.exp(torch.where(causal, cs[..., :, None] - cs[..., None, :],
+                                  -math.inf))                # (B, H, t, s)
+        s0 = bounds[ci].reshape(Bb, H, 1, P * N)
+        inject = (dtc[..., None] * xc)[..., :, None] * bc[:, :, None, None, :]
+        s_t = by_step(L @ flat(inject) + torch.exp(cs)[..., None] * s0)
+        s_prev = torch.cat([bounds[ci][None], s_t[:-1]])
+        # sbt[t] = dL/dS_t with step t's output term yb_t C_t^T, carried back
+        # through the decays; the adjoint of the chunk's first state is
+        # decay_0 sbt[0]
+        yc = yb[..., :, None] * cc[:, :, None, None, :]
+        sbt = by_step(L.transpose(-1, -2) @ flat(yc)
+                      + torch.exp(cs[..., -1:] - cs)[..., None]
+                      * sbar.reshape(Bb, H, 1, P * N))
+        sbar = decay[0][..., None, None] * sbt[0]
+        cbar = torch.einsum("tbhpn,tbhp->tbn", s_t, yb)
+        abar = (sbt * s_prev).sum((-2, -1))                  # d/d decay
+        sb_b = torch.einsum("tbhpn,tbn->tbhp", sbt, bc)
+        dtbar = abar * decay * Af + (sb_b * xc).sum(-1)
+        xbar = dtc[..., None] * sb_b
+        bbar = torch.einsum("tbhpn,tbhp->tbn", sbt, dtc[..., None] * xc)
+        Abar += torch.einsum("tbh,tbh->h", abar * decay, dtc)
+        for g, gc in ((gx, xbar), (gdt, dtbar), (gB, bbar), (gC, cbar)):
+            g[:, c0:c0 + chunk] = gc.movedim(0, 1)
+    return gx, gdt, Abar, gB, gC, sbar
+
+
+class SSDScan(torch.autograd.Function):
+    """The Mamba2 SSD with the chunked adjoint as its backward.  ``scan(x,
+    dt, B, C, A, state) -> (y, state)`` computes one chunk's forward (note
+    the argument order: the per-step inputs first)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, state0, scan):
+        chunk = divisor_chunk(x.shape[1], SSD_CHUNK)
+        y, state, bounds = _chunked_forward(scan, (x, dt, Bmat, Cmat), (A,),
+                                            state0, chunk)
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, bounds)
+        ctx.chunk, ctx.state_dtype = chunk, state0.dtype
+        return y, state
+
+    @staticmethod
+    def backward(ctx, ybar, sbar):
+        x, dt, A, Bmat, Cmat, bounds = ctx.saved_tensors
+        gx, gdt, gA, gB, gC, gs = _ssd_bwd(x, dt, A, Bmat, Cmat, bounds,
+                                           ctx.chunk, ybar, sbar)
+        return (gx.to(x.dtype), gdt.to(dt.dtype), gA.to(A.dtype),
+                gB.to(Bmat.dtype), gC.to(Cmat.dtype),
+                gs.to(ctx.state_dtype), None)
+
+
+def ssd_chunk_ref(x, dt, Bmat, Cmat, A, state):
+    """``mamba2_ssd_ref`` with the per-step inputs first, as ``SSDScan``
+    calls a chunk's scan."""
+    return mamba2_ssd_ref(x, dt, A, Bmat, Cmat, state)
+
+
+def mamba2_ssd_chunked(x, dt, A, Bmat, Cmat, state0, scan=ssd_chunk_ref):
+    """``mamba2_ssd_ref``'s function, differentiable by the chunked adjoint
+    (the reference's custom VJP), its forward run chunk by chunk through
+    ``scan`` (per-step inputs first, as ``SSDScan`` calls it)."""
+    return SSDScan.apply(x, dt, A, Bmat, Cmat, state0, scan)

@@ -26,10 +26,14 @@ from repro_torch.parallel.axes import ParamDef
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Runtime knobs carried into the apply functions.  On one device only
-    the kernel choice remains: ``impl`` is passed to ``kernels.ops`` (None
-    picks by device, "torch" the plain versions, "cuda" the kernels)."""
+    """Runtime knobs carried into the apply functions.  On one device the
+    kernel choice and the data-group count remain: ``impl`` is passed to
+    ``kernels.ops`` (None picks by device, "torch" the plain versions,
+    "cuda" the kernels); ``n_groups`` is the number of data shards, which
+    ``models.steps.make_train_step`` keeps every microbatch divisible
+    across (1 on one device)."""
     impl: str | None = None
+    n_groups: int = 1
 
 
 NO_SHARD = ShardCtx()
@@ -386,3 +390,14 @@ def lm_head_apply(p, x, ctx: ShardCtx = NO_SHARD):
     else:
         logits = torch.einsum("bsd,vd->bsv", x, p["embedding"])
     return logits.float()
+
+
+def xent_loss(logits, targets, mask=None):
+    """Stable cross-entropy; logits (B, S, V) float32, targets (B, S) int."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -7,6 +7,8 @@ leading ``layers`` axis); a Python loop over the layers replaces
 ``lax.scan``.  Three entry points:
 
   apply(params, cfg, tokens, ctx)              full-seq forward -> (logits, aux)
+                                               (return_hidden: the final-norm
+                                               hidden state instead of logits)
   prefill(params, cfg, tokens, ctx, max_len)   -> (logits_last, cache)
   decode(params, cfg, cache, tokens, pos, ctx) one-token step -> (logits, cache)
 
@@ -22,12 +24,13 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import NO_SHARD, ShardCtx
-from repro_torch.parallel.axes import ParamDef, tree_map
+from repro_torch.parallel.axes import ParamDef, tree_leaves, tree_map
 
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
@@ -45,9 +48,32 @@ def stack_defs(defs: Any, n: int) -> Any:
                                        scale=d.scale), defs)
 
 
-def layer(tree: Any, i: int) -> Any:
-    """Layer i of a stacked parameter tree (views, no copy)."""
-    return tree_map(lambda t: t[i], tree)
+def unstack(tree: Any) -> list:
+    """Every layer of a stacked parameter tree, each leaf split once by
+    ``torch.unbind`` (views, no copy).  Under autograd an unbind has one
+    backward, which stacks the layers' gradients into one buffer; indexing
+    ``t[i]`` per layer would instead allocate a zero gradient the size of
+    the whole stack for every layer."""
+    split = tree_map(lambda t: t.unbind(0), tree)
+    n = len(tree_leaves(split)[0])
+    return [tree_map(lambda parts: parts[i], split) for i in range(n)]
+
+
+def _remat(fn, cfg: ArchConfig):
+    """The reference's ``_remat`` (``repro/models/lm.py:37``): recompute
+    ``fn``'s activations in the backward pass instead of keeping them, when
+    grad is enabled.  "full" and "dots" both recompute everything here: the
+    reference's "dots" keeps the matmul outputs under an XLA checkpoint
+    policy, which has no counterpart in ``torch.utils.checkpoint``."""
+    if cfg.remat == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return run
 
 
 def _positions(B, S, device):
@@ -100,11 +126,6 @@ def param_defs(cfg: ArchConfig) -> dict:
         p["blocks"] = stack_defs(_mamba_block_defs(cfg), cfg.n_layers)
         p["shared"] = _shared_attn_defs(cfg)
     return p
-
-
-def n_layers(params) -> int:
-    blk = params["blocks"]
-    return (blk["ln"] if "ln" in blk else blk["ln1"])["scale"].shape[0]
 
 
 def _hybrid_groups(cfg: ArchConfig) -> list[tuple[int, int]]:
@@ -172,33 +193,47 @@ def _shared_block_apply(cfg, p, x, positions, ctx):
     return x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
 
 
-def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD):
+def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
+          return_hidden: bool = False):
     """Full-sequence forward.  tokens (B, S) int.  Returns (logits (B, S, V)
-    float32, aux_loss 0-dim float32)."""
+    float32, aux_loss 0-dim float32); with ``return_hidden`` the first
+    element is the final-norm hidden state (B, S, D) instead (the train step
+    computes the loss in sequence chunks, so the float32 logits never exist
+    whole).  Each layer (dense, ssm) or each hybrid group (the shared block
+    and its Mamba2 layers, as the reference's ``group_fn``) is
+    rematerialised in the backward pass per ``cfg.remat``."""
     _require_ported(cfg)
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = L.embed_apply(params["embed"], tokens, ctx)
+    blocks = unstack(params["blocks"])
     if cfg.family == "dense":
-        for i in range(n_layers(params)):
-            x = _dense_block_apply(cfg, layer(params["blocks"], i), x,
-                                   positions, ctx)
+        body = _remat(lambda x, blk: _dense_block_apply(cfg, blk, x,
+                                                        positions, ctx), cfg)
+        for blk in blocks:
+            x = body(x, blk)
     elif cfg.family == "ssm":
         x = L.norm_apply(params["ln0"], x)
         zeros_prev, state0 = _rwkv_zeros(cfg, B, x)
-        for i in range(n_layers(params)):
-            x, _, _, _ = _rwkv_block_apply(cfg, layer(params["blocks"], i), x,
-                                           zeros_prev, zeros_prev, state0,
-                                           ctx)
+        body = _remat(lambda x, blk: _rwkv_block_apply(
+            cfg, blk, x, zeros_prev, zeros_prev, state0, ctx)[0], cfg)
+        for blk in blocks:
+            x = body(x, blk)
     else:  # hybrid
         conv0, ssd0 = _mamba_zeros(cfg, B, x)
-        for lo, hi in _hybrid_groups(cfg):
+
+        def group_fn(x, group):
             x = _shared_block_apply(cfg, params, x, positions, ctx)
-            for i in range(lo, hi):
-                x, _, _ = _mamba_block_apply(cfg, layer(params["blocks"], i),
-                                             x, conv0, ssd0, ctx)
+            for blk in group:
+                x, _, _ = _mamba_block_apply(cfg, blk, x, conv0, ssd0, ctx)
+            return x
+        group_fn = _remat(group_fn, cfg)
+        for lo, hi in _hybrid_groups(cfg):
+            x = group_fn(x, blocks[lo:hi])
     x = L.norm_apply(params["final_norm"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
     return L.lm_head_apply(params["embed"], x, ctx), aux
 
 
@@ -257,9 +292,9 @@ def prefill(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
     positions = _positions(B, S, tokens.device)
     x = L.embed_apply(params["embed"], tokens, ctx)
     cache = init_cache(cfg, B, max_len, x.device)
+    blocks = unstack(params["blocks"])
     if cfg.family == "dense":
-        for i in range(n_layers(params)):
-            blk = layer(params["blocks"], i)
+        for i, blk in enumerate(blocks):
             h, (k, v) = L.attn_prefill(blk["attn"],
                                        L.norm_apply(blk["ln1"], x),
                                        positions=positions,
@@ -273,10 +308,9 @@ def prefill(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
     elif cfg.family == "ssm":
         x = L.norm_apply(params["ln0"], x)
         zeros_prev, state0 = _rwkv_zeros(cfg, B, x)
-        for i in range(n_layers(params)):
+        for i, blk in enumerate(blocks):
             x, tm_last, cm_last, state = _rwkv_block_apply(
-                cfg, layer(params["blocks"], i), x, zeros_prev, zeros_prev,
-                state0, ctx)
+                cfg, blk, x, zeros_prev, zeros_prev, state0, ctx)
             cache["wkv"][i] = state
             cache["tm_prev"][i] = tm_last
             cache["cm_prev"][i] = cm_last
@@ -302,7 +336,7 @@ def prefill(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
                     cache[name][g, :, :S] = t[:, :S]
             for i in range(lo, hi):
                 x, conv_s, ssd_s = _mamba_block_apply(
-                    cfg, layer(params["blocks"], i), x, conv0, ssd0, ctx)
+                    cfg, blocks[i], x, conv0, ssd0, ctx)
                 cache["conv"][i] = conv_s
                 cache["ssd"][i] = ssd_s
     x = L.norm_apply(params["final_norm"], x[:, -1:])
@@ -386,9 +420,9 @@ def decode(params, cfg: ArchConfig, cache: dict, tokens, pos, *,
     cache)."""
     _require_ported(cfg)
     x = L.embed_apply(params["embed"], tokens, ctx)
+    blocks = unstack(params["blocks"])
     if cfg.family == "dense":
-        for i in range(n_layers(params)):
-            blk = layer(params["blocks"], i)
+        for i, blk in enumerate(blocks):
             h, _ = L.attn_decode(blk["attn"], L.norm_apply(blk["ln1"], x),
                                  cache["k"][i], cache["v"][i], pos,
                                  theta=cfg.rope_theta,
@@ -397,12 +431,12 @@ def decode(params, cfg: ArchConfig, cache: dict, tokens, pos, *,
             x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
     elif cfg.family == "ssm":
         x = L.norm_apply(params["ln0"], x)
-        for i in range(n_layers(params)):
-            x = _rwkv_step(cfg, layer(params["blocks"], i), x, cache, i)
+        for i, blk in enumerate(blocks):
+            x = _rwkv_step(cfg, blk, x, cache, i)
     else:  # hybrid
         for g, (lo, hi) in enumerate(_hybrid_groups(cfg)):
             x = _shared_step(cfg, params["shared"], x, cache, g, pos, ctx)
             for i in range(lo, hi):
-                x = _mamba_step(cfg, layer(params["blocks"], i), x, cache, i)
+                x = _mamba_step(cfg, blocks[i], x, cache, i)
     x = L.norm_apply(params["final_norm"], x)
     return L.lm_head_apply(params["embed"], x, ctx)[:, 0], cache

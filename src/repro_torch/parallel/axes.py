@@ -64,6 +64,21 @@ def tree_leaves(tree: Any) -> list:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """A tree of ``like``'s structure holding ``leaves`` (sorted-key
+    order, as ``tree_leaves`` lists them)."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    out = walk(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def abstract_params(defs: Any, default_dtype: torch.dtype) -> Any:
     """The parameter tree as tensors on the ``meta`` device: shapes and
     dtypes, no storage."""

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-defaults need a GPU and never fall back to the CPU, and a kernel is never
-asked to run on a CPU tensor."""
+"""The port stands alone: it imports neither JAX nor the JAX package (it
+schedules, serves and trains with JAX unimportable), its defaults need a
+GPU and never fall back to the CPU, and a kernel is never asked to run on a
+CPU tensor."""
 
 import ast
 import os
@@ -17,14 +18,17 @@ from repro_torch.configs import get_arch, smoke_reduce
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.core.predictor import TaskPredictor
 from repro_torch.kernels import ops
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import get_model
 from repro_torch.ml import forest as tforest
 from repro_torch.obs import live as obs_live
 from repro_torch.ml import models
 from repro_torch.ml.cv import cross_validate
 from repro_torch.online.broker import BrokerPredictor, PredictionBroker
+from repro_torch.models.steps import init_train_state
 from repro_torch.online.server import AsyncBroker
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import ElasticTrainer, RuntimeConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -108,7 +112,7 @@ _NO_JAX_SERVE = """
 import sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 for arch in sys.argv[1:]:
     res = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "8",
                       "--tokens", "4", "--device", "cpu"])
@@ -131,6 +135,32 @@ def test_serves_with_jax_unimportable():
     for arch, first, second in zip(SERVED, lines[::2], lines[1::2]):
         assert first.startswith(f"[serve] {arch}-smoke: prefill 2x8")
         assert second.startswith("[serve] sample:")
+
+
+_NO_JAX_TRAIN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+from repro_torch.launch import train
+out = train.main(["--arch", "stablelm-1.6b", "--steps", "2", "--hosts", "2",
+                  "--seq-len", "16", "--global-batch", "4",
+                  "--checkpoint-dir", sys.argv[1], "--device", "cpu"])
+assert out["committed"] == 2 and out["checkpoints"] >= 1
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+"""
+
+
+def test_trains_with_jax_unimportable(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_TRAIN, str(tmp_path)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("[train] arch=stablelm-1.6b-smoke")
+    assert "[train] committed: 2" in lines
 
 
 def _imports(path: pathlib.Path):
@@ -173,9 +203,15 @@ def no_cuda(monkeypatch):
     lambda: search.run_search(search.SearchConfig(budget=1),
                               log=lambda *a: None),
     lambda: obs_live.main([]),
+    lambda: train.main(["--arch", "stablelm-1.6b", "--steps", "1"]),
+    lambda: ElasticTrainer(smoke_reduce(get_arch("stablelm-1.6b")),
+                           RuntimeConfig(steps=1), "unused"),
+    lambda: init_train_state(smoke_reduce(get_arch("stablelm-1.6b")), 0,
+                             AdamWConfig()),
 ], ids=["resolve_none", "resolve_cuda", "TaskPredictor", "BrokerPredictor",
         "PredictionBroker", "AsyncBroker", "fit_oblivious_forest", "GLM", "NeuralNet",
-        "cross_validate", "run_sweep", "run_search", "obs_live_main"])
+        "cross_validate", "run_sweep", "run_search", "obs_live_main",
+        "launch_train_main", "ElasticTrainer", "init_train_state"])
 def test_defaults_raise_without_gpu(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
