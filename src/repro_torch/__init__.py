@@ -21,9 +21,10 @@ tree and public names and imports nothing from it.  Ported so far:
                server, and the HTML dashboards.
   configs/    the model zoo's ten arch configs and shapes.
   parallel/    parameter definitions with logical axes; seeded init.
-  models/      the dense, ssm (RWKV6) and hybrid (Mamba2 + shared
-               attention) LMs (layers, prefill, cached decode) and the
-               Model facade; other families raise NotImplementedError.
+  models/      the model zoo's six families: the dense, moe, ssm (RWKV6),
+               hybrid (Mamba2 + shared attention) and vlm (cross-attention)
+               LMs and the audio encoder-decoder (layers, prefill, cached
+               decode) and the Model facade.
   launch/      serve.py: batched prefill, then greedy decode.
   kernels/     CUDA forest, attention and scan kernels (csrc/), their plain
                torch versions (ref.py) and the device dispatch (ops.py).

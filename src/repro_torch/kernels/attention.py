@@ -120,17 +120,21 @@ def _on(dev: torch.device):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
-    """q: (B, S, H, D); k/v: (B, Skv, Hkv, D), Skv >= S; float32 or
-    bfloat16, contiguous, on one CUDA device.  Returns (B, S, H, D) in q's
-    dtype.  bfloat16 runs on the tensor cores, float32 on the CUDA cores."""
+    """q: (B, S, H, D); k/v: (B, Skv, Hkv, D); float32 or bfloat16,
+    contiguous, on one CUDA device.  Returns (B, S, H, D) in q's dtype.
+    bfloat16 runs on the tensor cores, float32 on the CUDA cores.  Queries
+    are right-aligned (query i at position i + Skv - S), so Skv >= S unless
+    nothing is masked (not causal, no window): then every query sees every
+    key and cross-attention may have fewer keys than queries."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    if Skv < S and (causal or window):
+        raise ValueError(f"queries are right-aligned: Skv ({Skv}) < S ({S}) "
+                         "only without a causal mask or a window")
     _check_q(q, FLASH_MAX_GROUP, H, Hkv)
     dev = q.device
     _check(k, "k", q.dtype, (B, Skv, Hkv, D), dev)
     _check(v, "v", q.dtype, (B, Skv, Hkv, D), dev)
-    if Skv < S:
-        raise ValueError(f"queries are right-aligned: Skv ({Skv}) < S ({S})")
     out = torch.empty_like(q)
     lib = _build.load()
     with _on(dev):

@@ -10,7 +10,10 @@
 // window w keeps keys after position - w.  Scores, softmax state and
 // accumulators are float32; the output is cast to q's type.  Masked scores
 // are NEG_INF = -0.7 * FLT_MAX and the denominator is floored at 1e-37, as
-// in the reference.  Any S and Skv: ragged tails are masked.
+// in the reference.  Any S and Skv: ragged tails are masked.  Skv < S (a
+// negative offset, cross-attention to fewer keys than queries) comes only
+// without a causal mask or a window, where no position is compared and
+// every key tile is visited (the launcher checks).
 //
 // Two kernels, dispatched by dtype (both are the port's flash_attention):
 //

@@ -6,12 +6,16 @@ the cache (KV cache, or the recurrent state), ``tokens - 1`` steps.  It
 prints the same two lines as the reference.  Reduced (smoke) configs by
 default; ``--full-config`` serves the published widths and depth.
 ``--device`` defaults to CUDA and raises without a GPU; ``--device cpu``
-runs the plain torch versions on the CPU.  The dense, ssm (rwkv6-1.6b) and
-hybrid (zamba2-1.2b) families are ported; the code is family-blind.
+runs the plain torch versions on the CPU.  Every family of the zoo serves:
+dense, moe (deepseek-moe-16b, qwen3-moe-235b-a22b), ssm (rwkv6-1.6b),
+hybrid (zamba2-1.2b), vlm (llama-3.2-vision-90b) and audio
+(whisper-large-v3); the code is family-blind.  The vlm and audio models
+take the reference's stub media, every embedding 0.02.
 
     python -m repro_torch.launch.serve --arch mistral-nemo-12b --full-config
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
-    python -m repro_torch.launch.serve --arch zamba2-1.2b --full-config
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b --full-config \
+        --prompt-len 1024 --tokens 64
 """
 
 from __future__ import annotations
@@ -45,9 +49,10 @@ def prompts(batch: int, prompt_len: int, vocab_size: int,
 
 
 def generate(model, params, prompt, n_tokens: int, *, device=None, ctx=None,
-             keep_logits: bool = False) -> dict:
-    """Greedy generation: prefill ``prompt`` (B, S), then ``n_tokens - 1``
-    decode steps, each feeding back the previous argmax.  Returns the
+             keep_logits: bool = False, media=None) -> dict:
+    """Greedy generation: prefill ``prompt`` (B, S) (with ``media`` (B, M,
+    D) for the vlm and audio families), then ``n_tokens - 1`` decode
+    steps, each feeding back the previous argmax.  Returns the
     tokens (B, n_tokens) on the host, the prefill and decode wall times
     (each ending in a device synchronisation) and, with ``keep_logits``, the
     float32 logits of every step (n_tokens, B, V) on the device."""
@@ -55,8 +60,8 @@ def generate(model, params, prompt, n_tokens: int, *, device=None, ctx=None,
     B, S = prompt.shape
     max_len = S + n_tokens
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompt, max_len=max_len, ctx=ctx,
-                                  device=dev)
+    logits, cache = model.prefill(params, prompt, media=media,
+                                  max_len=max_len, ctx=ctx, device=dev)
     tok = logits.argmax(-1)[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -98,7 +103,12 @@ def main(argv=None) -> dict:
     model = get_model(arch)
     params = model.init(args.seed, device=dev)
     prompt = prompts(args.batch, args.prompt_len, arch.vocab_size, dev)
-    res = generate(model, params, prompt, args.tokens, device=dev)
+    media = None
+    if model.needs_media():
+        ms = model.media_struct(args.batch)
+        media = torch.ones(ms.shape, dtype=ms.dtype, device=dev) * 0.02
+    res = generate(model, params, prompt, args.tokens, device=dev,
+                   media=media)
     n = res["tokens"].size
     dt = res["decode_s"]
     print(f"[serve] {arch.name}: prefill {args.batch}x{args.prompt_len} in "

@@ -1,7 +1,9 @@
-"""The model zoo, the dense family so far: layers, the decoder-only LM and
-the ``Model`` facade."""
+"""The model zoo: layers, the decoder-only LM, the encoder-decoder and the
+``Model`` facade."""
 
 from repro_torch.models.layers import NO_SHARD, ShardCtx
-from repro_torch.models.registry import Model, get_model, param_count
+from repro_torch.models.registry import (Model, active_param_count,
+                                         get_model, param_count)
 
-__all__ = ["Model", "ShardCtx", "NO_SHARD", "get_model", "param_count"]
+__all__ = ["Model", "ShardCtx", "NO_SHARD", "active_param_count",
+           "get_model", "param_count"]

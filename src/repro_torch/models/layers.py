@@ -1,15 +1,15 @@
-"""Model-zoo building blocks in PyTorch: the dense, RWKV6 and Mamba2 subset.
+"""Model-zoo building blocks in PyTorch.
 
-The port's copy of ``repro/models/layers.py`` for the dense decoder (norms,
-RoPE, attention for the full sequence, prefill with a KV cache and cached
-decode, the MLPs, embedding and LM head), RWKV6's time and channel mix and
-the Mamba2 block.  Every block exposes ``<block>_defs(...) ->
-tree[ParamDef]`` and apply functions on tensors, with the reference's
-names, parameter layouts and arithmetic: norms, RoPE and the activations
-compute in float32 and cast back; projections are ``torch.einsum`` (the
-reference leaves them to XLA, outside any Pallas kernel); attention and the
-two scans go through ``kernels.ops``, which launches the CUDA kernels on
-CUDA tensors.
+The port's copy of ``repro/models/layers.py``: norms, RoPE, attention (self
+and cross, for the full sequence, prefill with a KV cache and cached
+decode), the MLPs, the Mixture of Experts, RWKV6's time and channel mix,
+the Mamba2 block, the embedding and the LM head.  Every block exposes
+``<block>_defs(...) -> tree[ParamDef]`` and apply functions on tensors,
+with the reference's names, parameter layouts and arithmetic: norms, RoPE
+and the activations compute in float32 and cast back; projections and the
+experts' products are ``torch.einsum`` (the reference leaves them to XLA,
+outside any Pallas kernel); attention and the two scans go through
+``kernels.ops``, which launches the CUDA kernels on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -29,9 +29,10 @@ class ShardCtx:
     """Runtime knobs carried into the apply functions.  On one device the
     kernel choice and the data-group count remain: ``impl`` is passed to
     ``kernels.ops`` (None picks by device, "torch" the plain versions,
-    "cuda" the kernels); ``n_groups`` is the number of data shards, which
-    ``models.steps.make_train_step`` keeps every microbatch divisible
-    across (1 on one device)."""
+    "cuda" the kernels); ``n_groups`` is the number of data shards (1 on
+    one device): the groups ``moe_apply`` routes and caps tokens within,
+    and what ``models.steps.make_train_step`` keeps every microbatch
+    divisible across."""
     impl: str | None = None
     n_groups: int = 1
 
@@ -94,7 +95,8 @@ def rope_apply(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Attention (full sequence, prefill into a cache, cached decode)
+# Attention (self / cross, full sequence, prefill into a cache, cached
+# decode)
 # ---------------------------------------------------------------------------
 
 def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int) -> dict:
@@ -110,10 +112,11 @@ def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int) -> dict:
     }
 
 
-def _qkv(p, x):
+def _qkv(p, x, kv_x=None):
+    kv_x = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
     return q, k, v
 
 
@@ -121,24 +124,30 @@ def _out(p, o):
     return torch.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
-def attn_apply(p, x, *, positions, theta=10000.0, causal=True, window=0,
-               ctx: ShardCtx = NO_SHARD):
-    """Full-sequence self-attention (the forward path)."""
-    q, k, v = _qkv(p, x)
-    q = rope_apply(q, positions, theta)
-    k = rope_apply(k, positions, theta)
+def attn_apply(p, x, *, positions=None, theta=10000.0, causal=True,
+               window=0, ctx: ShardCtx = NO_SHARD, kv_x=None, use_rope=True):
+    """Full-sequence attention.  ``kv_x`` (B, M, D) makes it cross
+    attention: keys and values from kv_x, never causal, RoPE (when
+    ``use_rope`` and positions are given) on the queries only."""
+    q, k, v = _qkv(p, x, kv_x)
+    if use_rope and positions is not None:
+        q = rope_apply(q, positions, theta)
+        if kv_x is None:
+            k = rope_apply(k, positions, theta)
     out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window, impl=ctx.impl)
+                              causal=causal and kv_x is None, window=window,
+                              impl=ctx.impl)
     return _out(p, out)
 
 
 def attn_prefill(p, x, *, positions, theta, causal=True, window=0,
-                 ctx: ShardCtx = NO_SHARD, cache_len: int):
+                 ctx: ShardCtx = NO_SHARD, cache_len: int, use_rope=True):
     """Full-sequence attention that also emits a right-padded KV cache of
     length cache_len: (y, (k, v)) with k/v (B, cache_len, Hkv, Dh)."""
     q, k, v = _qkv(p, x)
-    q = rope_apply(q, positions, theta)
-    k = rope_apply(k, positions, theta)
+    if use_rope:
+        q = rope_apply(q, positions, theta)
+        k = rope_apply(k, positions, theta)
     k, v = k.contiguous(), v.contiguous()
     out = ops.flash_attention(q.contiguous(), k, v, causal=causal,
                               window=window, impl=ctx.impl)
@@ -148,7 +157,7 @@ def attn_prefill(p, x, *, positions, theta, causal=True, window=0,
 
 
 def attn_decode(p, x, cache_k, cache_v, pos, *, theta, window=0,
-                ctx: ShardCtx = NO_SHARD):
+                ctx: ShardCtx = NO_SHARD, use_rope=True, cross_kv=None):
     """Single-token decode.  x: (B, 1, D); cache_k/v: (B, Smax, Hkv, Dh);
     pos: (B,) number of tokens already in the cache.  Returns
     y, (cache_k, cache_v).
@@ -156,10 +165,21 @@ def attn_decode(p, x, cache_k, cache_v, pos, *, theta, window=0,
     Unlike the reference, which returns new arrays, the new key and value
     rows are written into ``cache_k``/``cache_v`` IN PLACE at ``pos`` and
     the same tensors are returned: a serving cache is updated, never
-    copied."""
+    copied.  With ``cross_kv`` = (k, v), each (B, M, Hkv, Dh), the query
+    attends to all M rows of that static cache instead, nothing is written
+    and ``cache_k``/``cache_v`` come back as given."""
+    if cross_kv is not None:
+        ck, cv = cross_kv
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        kv_len = torch.full((x.shape[0],), ck.shape[1], dtype=torch.int32,
+                            device=x.device)
+        out = ops.decode_attention(q.contiguous(), ck, cv, kv_len,
+                                   impl=ctx.impl)
+        return _out(p, out), (cache_k, cache_v)
     q, k, v = _qkv(p, x)
-    q = rope_apply(q, pos[:, None], theta)
-    k = rope_apply(k, pos[:, None], theta)
+    if use_rope:
+        q = rope_apply(q, pos[:, None], theta)
+        k = rope_apply(k, pos[:, None], theta)
     bidx = torch.arange(x.shape[0], device=x.device)
     pos = pos.to(device=x.device, dtype=torch.long)
     cache_k[bidx, pos] = k[:, 0].to(cache_k.dtype)
@@ -194,6 +214,139 @@ def mlp_apply(p, x, ctx: ShardCtx = NO_SHARD):
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     return torch.einsum("bsf,fd->bsd", h, p["wd"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based token dispatch, capacity-bounded)
+# ---------------------------------------------------------------------------
+
+def moe_defs(cfg: ArchConfig) -> dict:
+    m = cfg.moe
+    d_model = cfg.d_model
+    d = {
+        "router": ParamDef((d_model, m.n_experts), ("embed", "experts"),
+                           init="scaled", scale=0.1),
+        "wg": ParamDef((m.n_experts, d_model, m.expert_ff),
+                       ("experts", "embed", "expert_ff"), init="scaled"),
+        "wu": ParamDef((m.n_experts, d_model, m.expert_ff),
+                       ("experts", "embed", "expert_ff"), init="scaled"),
+        "wd": ParamDef((m.n_experts, m.expert_ff, d_model),
+                       ("experts", "expert_ff", "embed"), init="scaled"),
+    }
+    if m.n_shared_experts:
+        d["shared"] = mlp_defs(d_model, m.n_shared_experts * m.expert_ff)
+    return d
+
+
+def moe_capacity(cfg: ArchConfig, Tg: int, dropless: bool) -> int:
+    """Slots per expert for a group of Tg tokens: all Tg * top_k pairs when
+    dropless, else capacity_factor's share, at least 1 (the reference's
+    formula, in Python on the shapes)."""
+    m = cfg.moe
+    K = m.top_k
+    if dropless:
+        return Tg * K
+    return min(max(1, int(m.capacity_factor * Tg * K / m.n_experts)), Tg * K)
+
+
+def moe_route(p, xt, cfg: ArchConfig):
+    """The router on tokens xt (G, Tg, D): the softmax probabilities
+    (G, Tg, E) float32, and each token's top_k experts (G, Tg, K) with
+    their probabilities renormalised to sum to 1.  Equal probabilities go
+    to the lower expert id first, the order of ``jax.lax.top_k``: a stable
+    descending sort, where ``torch.topk`` promises no order among equal
+    values."""
+    K = cfg.moe.top_k
+    logits = torch.einsum("gtd,de->gte", xt, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = vals[..., :K], idx[..., :K]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    return probs, topv, topi
+
+
+def moe_apply(p, x, cfg: ArchConfig, ctx: ShardCtx = NO_SHARD,
+              dropless=False):
+    """x: (B, S, D) -> (y (B, S, D), aux loss 0-dim float32).
+
+    The reference's sort-based dispatch (``repro/models/layers.py:229``):
+    tokens in ``ctx.n_groups`` groups, each group's (token, expert) pairs
+    stably sorted by expert, the first C of each expert kept (C from
+    ``moe_capacity``; the rest are dropped and keep the shared-expert and
+    residual paths), the experts' SwiGLU as three batched products, each
+    token's weighted outputs summed in increasing expert id in x's dtype
+    (the order of a sequential scatter over the sorted pairs, without the
+    run-to-run variation of atomics), then the shared experts.  Groups of
+    more than ``chunk_tokens`` tokens are dispatched chunk by chunk and the
+    aux loss is the chunks' mean.  Nothing here waits for the device: no
+    boolean indexing and no host read, the reference's masks are
+    multiplications."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    G = min(ctx.n_groups, T)
+    while T % G:
+        G -= 1
+    Tg = T // G
+    if m.chunk_tokens and Tg > m.chunk_tokens:
+        sub = m.chunk_tokens
+        while Tg % sub:
+            sub -= 1
+        xs = x.reshape(G, Tg // sub, sub, D)
+        ys, auxs = zip(*(moe_apply(p, xs[:, i], cfg, ctx, dropless)
+                         for i in range(Tg // sub)))
+        return torch.stack(ys, 1).reshape(B, S, D), torch.stack(auxs).mean()
+    E, K = m.n_experts, m.top_k
+    C = moe_capacity(cfg, Tg, dropless)
+    dev = x.device
+
+    xt = x.reshape(G, Tg, D)
+    probs, topv, topi = moe_route(p, xt, cfg)
+
+    # load-balance auxiliary loss (Switch-style), counted before drops
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
+    aux = (me * ce).sum() * E * m.router_aux_weight
+
+    # dispatch: pair j = t * K + k of a group, sorted stably by expert
+    eid = topi.reshape(G, Tg * K)
+    order = torch.argsort(eid, dim=-1, stable=True)
+    eid_s = eid.gather(1, order)
+    experts = torch.arange(E, device=dev).expand(G, E).contiguous()
+    start = torch.searchsorted(eid_s, experts)                 # (G, E)
+    count = torch.searchsorted(eid_s, experts, right=True) - start
+    slot = torch.arange(C, device=dev)
+    src = start[..., None] + slot                              # (G, E, C)
+    filled = slot < count[..., None]
+    src = torch.where(filled, src, 0).reshape(G, E * C)
+    tok = (order.gather(1, src) // K).reshape(G, E, C)
+    gidx = torch.arange(G, device=dev)
+    xin = xt[gidx[:, None, None], tok] * filled[..., None].to(x.dtype)
+
+    # the experts' FFN (G, E, C, D)
+    gate = F.silu(torch.einsum("gecd,edf->gecf", xin, p["wg"]).float())
+    up = torch.einsum("gecd,edf->gecf", xin, p["wu"])
+    h = gate.to(x.dtype) * up
+    out_e = torch.einsum("gecf,efd->gecd", h, p["wd"])
+
+    # combine: each pair's slot, its kept weight, the K outputs of a token
+    # summed in increasing expert id
+    pair_slot = torch.empty_like(order).scatter_(
+        1, order, torch.arange(Tg * K, device=dev).expand(G, -1)
+        - start.gather(1, eid_s))
+    keep = pair_slot < C
+    vals = out_e[gidx[:, None], eid, torch.where(keep, pair_slot, 0)]
+    w = topv.reshape(G, Tg * K) * keep.float()
+    vals = (vals * w.to(x.dtype)[..., None]).reshape(G, Tg, K, D)
+    by_id = torch.argsort(topi, dim=-1)[..., None].expand(-1, -1, -1, D)
+    vals = vals.gather(2, by_id)
+    y = vals[:, :, 0]
+    for k in range(1, K):
+        y = y + vals[:, :, k]
+    y = y.reshape(B, S, D)
+    if m.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x, ctx)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,23 @@
-"""Decoder-only LM assembly in PyTorch: the dense, ssm (RWKV6) and hybrid
-(Mamba2 + shared attention, Zamba2-style) families.
+"""Decoder-only LM assembly in PyTorch: the dense, moe, ssm (RWKV6),
+hybrid (Mamba2 + shared attention, Zamba2-style) and vlm (cross-attention
+image layers) families.
 
-The port's copy of ``repro/models/lm.py`` for those families.  The
-parameter tree has the reference's paths and shapes (layer stacks carry a
-leading ``layers`` axis); a Python loop over the layers replaces
-``lax.scan``.  Three entry points:
+The port's copy of ``repro/models/lm.py``.  The parameter tree has the
+reference's paths and shapes (layer stacks carry a leading ``layers``
+axis); a Python loop over the layers replaces ``lax.scan``.  Three entry
+points:
 
-  apply(params, cfg, tokens, ctx)              full-seq forward -> (logits, aux)
-                                               (return_hidden: the final-norm
-                                               hidden state instead of logits)
-  prefill(params, cfg, tokens, ctx, max_len)   -> (logits_last, cache)
+  apply(params, cfg, tokens, media, ctx)  full-seq forward -> (logits, aux)
+                                          (return_hidden: the final-norm
+                                          hidden state instead of logits)
+  prefill(params, cfg, tokens, media, ctx, max_len) -> (logits_last, cache)
   decode(params, cfg, cache, tokens, pos, ctx) one-token step -> (logits, cache)
 
-``decode`` updates ``cache`` in place (the new key/value rows, the
+``media`` (B, M, D) is the vlm family's image embeddings, None for the
+others.  ``decode`` updates ``cache`` in place (the new key/value rows, the
 recurrent states and token-shift rows) and returns the same dict; the
-reference returns a new one.  The other families (moe, vlm, audio) are not
-ported yet and raise ``NotImplementedError``.
+reference returns a new one.  The audio family (Whisper's encoder-decoder)
+is ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -32,14 +34,13 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.parallel.axes import ParamDef, tree_leaves, tree_map
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
-def _require_ported(cfg: ArchConfig):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ported: {', '.join(PORTED_FAMILIES)})")
+def _require_family(cfg: ArchConfig):
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} not handled by "
+                         f"lm.py ({', '.join(FAMILIES)})")
 
 
 def stack_defs(defs: Any, n: int) -> Any:
@@ -90,6 +91,23 @@ def _dense_block_defs(cfg: ArchConfig) -> dict:
     }
 
 
+def _moe_block_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": L.norm_defs(cfg.d_model),
+        "attn": L.attn_defs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.resolved_head_dim),
+        "ln2": L.norm_defs(cfg.d_model),
+        "moe": L.moe_defs(cfg),
+    }
+
+
+def _dense_fallback_ff(cfg: ArchConfig) -> int:
+    # deepseek-style: the leading dense layer matches the activated expert
+    # width
+    m = cfg.moe
+    return (m.top_k + m.n_shared_experts) * m.expert_ff
+
+
 def _rwkv_block_defs(cfg: ArchConfig) -> dict:
     d = L.rwkv6_defs(cfg)
     d["ln1"] = L.norm_defs(cfg.d_model)
@@ -113,18 +131,45 @@ def _shared_attn_defs(cfg: ArchConfig) -> dict:
     }
 
 
+def _cross_block_defs(cfg: ArchConfig) -> dict:
+    d = _dense_block_defs(cfg)
+    d["gate_attn"] = ParamDef((1,), (None,), init="zeros")
+    d["gate_mlp"] = ParamDef((1,), (None,), init="zeros")
+    return d
+
+
+def _vlm_layout(cfg: ArchConfig) -> tuple[int, int]:
+    """(cross blocks, self blocks per period): each period is period - 1
+    self-attention blocks, then one cross-attention block."""
+    period = cfg.cross_attn.period
+    return cfg.n_layers // period, period - 1
+
+
 def param_defs(cfg: ArchConfig) -> dict:
-    _require_ported(cfg)
+    _require_family(cfg)
     p: dict = {"embed": L.embed_defs(cfg),
                "final_norm": L.norm_defs(cfg.d_model)}
     if cfg.family == "dense":
         p["blocks"] = stack_defs(_dense_block_defs(cfg), cfg.n_layers)
+    elif cfg.family == "moe":
+        nd = cfg.moe.first_dense
+        if nd:
+            dense = dict(_moe_block_defs(cfg))
+            dense.pop("moe")
+            dense["mlp"] = L.mlp_defs(cfg.d_model, _dense_fallback_ff(cfg))
+            p["dense0"] = stack_defs(dense, nd)
+        p["blocks"] = stack_defs(_moe_block_defs(cfg), cfg.n_layers - nd)
     elif cfg.family == "ssm":
         p["ln0"] = L.norm_defs(cfg.d_model)
         p["blocks"] = stack_defs(_rwkv_block_defs(cfg), cfg.n_layers)
-    else:  # hybrid
+    elif cfg.family == "hybrid":
         p["blocks"] = stack_defs(_mamba_block_defs(cfg), cfg.n_layers)
         p["shared"] = _shared_attn_defs(cfg)
+    else:  # vlm
+        n_cross = _vlm_layout(cfg)[0]
+        p["self_blocks"] = stack_defs(_dense_block_defs(cfg),
+                                      cfg.n_layers - n_cross)
+        p["cross_blocks"] = stack_defs(_cross_block_defs(cfg), n_cross)
     return p
 
 
@@ -168,6 +213,15 @@ def _dense_block_apply(cfg, blk, x, positions, ctx):
     return x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
 
 
+def _moe_block_apply(cfg, blk, x, positions, ctx):
+    h = L.attn_apply(blk["attn"], L.norm_apply(blk["ln1"], x),
+                     positions=positions, theta=cfg.rope_theta,
+                     causal=cfg.causal, window=cfg.sliding_window, ctx=ctx)
+    x = x + h
+    y, aux = L.moe_apply(blk["moe"], L.norm_apply(blk["ln2"], x), cfg, ctx)
+    return x + y, aux
+
+
 def _rwkv_block_apply(cfg, blk, x, tm_prev, cm_prev, state0, ctx):
     h, (tm_last, state) = L.rwkv6_time_mix(
         blk, L.norm_apply(blk["ln1"], x), tm_prev, state0, cfg, ctx)
@@ -193,34 +247,75 @@ def _shared_block_apply(cfg, p, x, positions, ctx):
     return x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
 
 
-def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
-          return_hidden: bool = False):
-    """Full-sequence forward.  tokens (B, S) int.  Returns (logits (B, S, V)
-    float32, aux_loss 0-dim float32); with ``return_hidden`` the first
-    element is the final-norm hidden state (B, S, D) instead (the train step
-    computes the loss in sequence chunks, so the float32 logits never exist
-    whole).  Each layer (dense, ssm) or each hybrid group (the shared block
-    and its Mamba2 layers, as the reference's ``group_fn``) is
-    rematerialised in the backward pass per ``cfg.remat``."""
-    _require_ported(cfg)
+def _layers(params) -> list:
+    """The dense and moe families' layers in order: dense0, then blocks."""
+    head = unstack(params["dense0"]) if "dense0" in params else []
+    return head + unstack(params["blocks"])
+
+
+def _gated(gate, x, h):
+    """x + tanh(gate) h, the gate in float32 and cast to x's dtype."""
+    return x + torch.tanh(gate.float()).to(x.dtype) * h
+
+
+def _cross_mlp(blk, x, ctx):
+    """The cross block's gated MLP residual."""
+    return _gated(blk["gate_mlp"], x, L.mlp_apply(
+        blk["mlp"], L.norm_apply(blk["ln2"], x), ctx))
+
+
+def _cross_block_apply(cfg, blk, x, media, ctx):
+    h = L.attn_apply(blk["attn"], L.norm_apply(blk["ln1"], x), causal=False,
+                     ctx=ctx, kv_x=media, use_rope=False)
+    return _cross_mlp(blk, _gated(blk["gate_attn"], x, h), ctx)
+
+
+def _need_media(cfg, media):
+    if media is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs media "
+                         "embeddings (B, M, d_model)")
+
+
+def apply(params, cfg: ArchConfig, tokens, *, media=None,
+          ctx: ShardCtx = NO_SHARD, return_hidden: bool = False):
+    """Full-sequence forward.  tokens (B, S) int; media (B, M, D) for vlm.
+    Returns (logits (B, S, V) float32, aux_loss 0-dim float32: the MoE
+    layers' load-balance losses summed, else 0); with ``return_hidden`` the
+    first element is the final-norm hidden state (B, S, D) instead (the
+    train step computes the loss in sequence chunks, so the float32 logits
+    never exist whole).  Each layer (dense, moe, ssm), each hybrid group
+    (the shared block and its Mamba2 layers, as the reference's
+    ``group_fn``) or each vlm period (its self blocks and its cross block)
+    is rematerialised in the backward pass per ``cfg.remat``."""
+    _require_family(cfg)
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = L.embed_apply(params["embed"], tokens, ctx)
-    blocks = unstack(params["blocks"])
-    if cfg.family == "dense":
-        body = _remat(lambda x, blk: _dense_block_apply(cfg, blk, x,
-                                                        positions, ctx), cfg)
-        for blk in blocks:
-            x = body(x, blk)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("dense", "moe"):
+        dense = _remat(lambda x, blk: _dense_block_apply(cfg, blk, x,
+                                                         positions, ctx), cfg)
+        moe = _remat(lambda x, blk: _moe_block_apply(cfg, blk, x, positions,
+                                                     ctx), cfg)
+        auxs = []
+        for blk in _layers(params):
+            if "moe" in blk:
+                x, a = moe(x, blk)
+                auxs.append(a)
+            else:
+                x = dense(x, blk)
+        if auxs:
+            aux = aux + torch.stack(auxs).sum()
     elif cfg.family == "ssm":
         x = L.norm_apply(params["ln0"], x)
         zeros_prev, state0 = _rwkv_zeros(cfg, B, x)
         body = _remat(lambda x, blk: _rwkv_block_apply(
             cfg, blk, x, zeros_prev, zeros_prev, state0, ctx)[0], cfg)
-        for blk in blocks:
+        for blk in unstack(params["blocks"]):
             x = body(x, blk)
-    else:  # hybrid
+    elif cfg.family == "hybrid":
         conv0, ssd0 = _mamba_zeros(cfg, B, x)
+        blocks = unstack(params["blocks"])
 
         def group_fn(x, group):
             x = _shared_block_apply(cfg, params, x, positions, ctx)
@@ -230,8 +325,19 @@ def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
         group_fn = _remat(group_fn, cfg)
         for lo, hi in _hybrid_groups(cfg):
             x = group_fn(x, blocks[lo:hi])
+    else:  # vlm
+        _need_media(cfg, media)
+        n_cross, per = _vlm_layout(cfg)
+        selfs = unstack(params["self_blocks"])
+
+        def period_fn(x, group, cross):
+            for blk in group:
+                x = _dense_block_apply(cfg, blk, x, positions, ctx)
+            return _cross_block_apply(cfg, cross, x, media, ctx)
+        period_fn = _remat(period_fn, cfg)
+        for g, cross in enumerate(unstack(params["cross_blocks"])):
+            x = period_fn(x, selfs[g * per:(g + 1) * per], cross)
     x = L.norm_apply(params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return L.lm_head_apply(params["embed"], x, ctx), aux
@@ -243,21 +349,32 @@ def apply(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
 
 def cache_struct(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """The decode cache as ``meta`` tensors, the reference's layout:
-    dense: k and v (n_layers, batch, max_len, n_kv_heads, head_dim);
+    dense, moe: k and v (n_layers, batch, max_len, n_kv_heads, head_dim);
+    vlm: k and v of the self blocks (n_self, batch, max_len, n_kv_heads,
+    head_dim) and the cross blocks' static media keys and values xk, xv
+    (n_cross, batch, n_media_tokens, n_kv_heads, head_dim);
     ssm: wkv (n_layers, batch, H, Dh, Dh) float32 and the token-shift rows
     tm_prev, cm_prev (n_layers, batch, d_model); hybrid: conv (n_layers,
     batch, conv_width - 1, conv_ch), ssd (n_layers, batch, H, P, N) float32
     and the shared block's window cache shared_k, shared_v (invocations,
     batch, W, heads, head_dim), W = min(max_len, sliding_window)."""
-    _require_ported(cfg)
+    _require_family(cfg)
     dt, f32 = cfg.dtype, torch.float32
 
     def meta(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
     nl = cfg.n_layers
-    if cfg.family == "dense":
-        kv = (nl, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
+    if cfg.family in ("dense", "moe"):
+        kv = (nl, batch, max_len, cfg.n_kv_heads, hd)
         return {"k": meta(kv, dt), "v": meta(kv, dt)}
+    if cfg.family == "vlm":
+        n_cross = _vlm_layout(cfg)[0]
+        kv = (nl - n_cross, batch, max_len, cfg.n_kv_heads, hd)
+        xkv = (n_cross, batch, cfg.cross_attn.n_media_tokens, cfg.n_kv_heads,
+               hd)
+        return {"k": meta(kv, dt), "v": meta(kv, dt), "xk": meta(xkv, dt),
+                "xv": meta(xkv, dt)}
     s = cfg.ssm
     if cfg.family == "ssm":
         H = cfg.d_model // s.head_dim
@@ -275,40 +392,76 @@ def cache_struct(cfg: ArchConfig, batch: int, max_len: int) -> dict:
             "shared_k": meta(kv, dt), "shared_v": meta(kv, dt)}
 
 
+def zeros_of(struct: dict, device: torch.device) -> dict:
+    """Zero tensors on ``device`` of a cache_struct's shapes and dtypes."""
+    return {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for name, s in struct.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
-    return {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
-            for name, s in cache_struct(cfg, batch, max_len).items()}
+    return zeros_of(cache_struct(cfg, batch, max_len), device)
 
 
-def prefill(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
-            max_len: int | None = None):
+def _prefill_attn(cfg, blk, x, positions, cache, i, max_len, ctx):
+    """x plus the block's self-attention over the prompt; its keys and
+    values go into layer i of the KV cache."""
+    h, (k, v) = L.attn_prefill(blk["attn"], L.norm_apply(blk["ln1"], x),
+                               positions=positions, theta=cfg.rope_theta,
+                               window=cfg.sliding_window, ctx=ctx,
+                               cache_len=max_len)
+    cache["k"][i] = k
+    cache["v"][i] = v
+    return x + h
+
+
+def _ffn(cfg, blk, x, ctx, dropless=False):
+    """x plus the block's MLP or MoE (its aux loss dropped)."""
+    xin = L.norm_apply(blk["ln2"], x)
+    if "moe" in blk:
+        return x + L.moe_apply(blk["moe"], xin, cfg, ctx,
+                               dropless=dropless)[0]
+    return x + L.mlp_apply(blk["mlp"], xin, ctx)
+
+
+def _media_kv(blk, media):
+    """A cross block's keys and values of the media (B, M, Hkv, Dh)."""
+    return (torch.einsum("bmd,dhk->bmhk", media, blk["attn"]["wk"]),
+            torch.einsum("bmd,dhk->bmhk", media, blk["attn"]["wv"]))
+
+
+def prefill(params, cfg: ArchConfig, tokens, *, media=None,
+            ctx: ShardCtx = NO_SHARD, max_len: int | None = None):
     """Process a prompt; return (logits_last (B, V) float32, cache): the KV
-    cache filled to S and zero beyond, of length max_len (dense); the
-    states after the prompt (ssm, hybrid)."""
-    _require_ported(cfg)
+    cache filled to S and zero beyond, of length max_len (dense, moe, vlm,
+    whose cache also holds the media keys and values); the states after
+    the prompt (ssm, hybrid).  The MoE layers are capacity-bounded, as in
+    the forward."""
+    _require_family(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     positions = _positions(B, S, tokens.device)
     x = L.embed_apply(params["embed"], tokens, ctx)
     cache = init_cache(cfg, B, max_len, x.device)
-    blocks = unstack(params["blocks"])
-    if cfg.family == "dense":
-        for i, blk in enumerate(blocks):
-            h, (k, v) = L.attn_prefill(blk["attn"],
-                                       L.norm_apply(blk["ln1"], x),
-                                       positions=positions,
-                                       theta=cfg.rope_theta,
-                                       window=cfg.sliding_window, ctx=ctx,
-                                       cache_len=max_len)
-            cache["k"][i] = k
-            cache["v"][i] = v
-            x = x + h
-            x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
+    if cfg.family in ("dense", "moe"):
+        for i, blk in enumerate(_layers(params)):
+            x = _prefill_attn(cfg, blk, x, positions, cache, i, max_len, ctx)
+            x = _ffn(cfg, blk, x, ctx)
+    elif cfg.family == "vlm":
+        _need_media(cfg, media)
+        per = _vlm_layout(cfg)[1]
+        selfs = unstack(params["self_blocks"])
+        for g, cross in enumerate(unstack(params["cross_blocks"])):
+            for i in range(g * per, (g + 1) * per):
+                x = _prefill_attn(cfg, selfs[i], x, positions, cache, i,
+                                  max_len, ctx)
+                x = _ffn(cfg, selfs[i], x, ctx)
+            cache["xk"][g], cache["xv"][g] = _media_kv(cross, media)
+            x = _cross_block_apply(cfg, cross, x, media, ctx)
     elif cfg.family == "ssm":
         x = L.norm_apply(params["ln0"], x)
         zeros_prev, state0 = _rwkv_zeros(cfg, B, x)
-        for i, blk in enumerate(blocks):
+        for i, blk in enumerate(unstack(params["blocks"])):
             x, tm_last, cm_last, state = _rwkv_block_apply(
                 cfg, blk, x, zeros_prev, zeros_prev, state0, ctx)
             cache["wkv"][i] = state
@@ -316,6 +469,7 @@ def prefill(params, cfg: ArchConfig, tokens, *, ctx: ShardCtx = NO_SHARD,
             cache["cm_prev"][i] = cm_last
     else:  # hybrid
         conv0, ssd0 = _mamba_zeros(cfg, B, x)
+        blocks = unstack(params["blocks"])
         W = cache["shared_k"].shape[2]
         sh = params["shared"]
         for g, (lo, hi) in enumerate(_hybrid_groups(cfg)):
@@ -413,27 +567,46 @@ def _shared_step(cfg, sh, x, cache, g, pos, ctx):
     return x + L.mlp_apply(sh["mlp"], L.norm_apply(sh["ln2"], x), ctx)
 
 
+def _decode_attn(cfg, blk, x, cache, i, pos, ctx):
+    """x plus the block's self-attention for one token against layer i of
+    the KV cache, whose row ``pos`` it writes in place."""
+    h, _ = L.attn_decode(blk["attn"], L.norm_apply(blk["ln1"], x),
+                         cache["k"][i], cache["v"][i], pos,
+                         theta=cfg.rope_theta, window=cfg.sliding_window,
+                         ctx=ctx)
+    return x + h
+
+
 def decode(params, cfg: ArchConfig, cache: dict, tokens, pos, *,
            ctx: ShardCtx = NO_SHARD):
     """One decode step.  tokens (B, 1) int; pos (B,) int32 tokens already
     seen.  Updates ``cache`` in place; returns (logits (B, V) float32,
-    cache)."""
-    _require_ported(cfg)
+    cache).  The MoE layers are dropless; the vlm cross blocks attend to
+    the media keys and values cached by prefill."""
+    _require_family(cfg)
     x = L.embed_apply(params["embed"], tokens, ctx)
-    blocks = unstack(params["blocks"])
-    if cfg.family == "dense":
-        for i, blk in enumerate(blocks):
-            h, _ = L.attn_decode(blk["attn"], L.norm_apply(blk["ln1"], x),
-                                 cache["k"][i], cache["v"][i], pos,
-                                 theta=cfg.rope_theta,
-                                 window=cfg.sliding_window, ctx=ctx)
-            x = x + h
-            x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], x), ctx)
+    if cfg.family in ("dense", "moe"):
+        for i, blk in enumerate(_layers(params)):
+            x = _decode_attn(cfg, blk, x, cache, i, pos, ctx)
+            x = _ffn(cfg, blk, x, ctx, dropless=True)
+    elif cfg.family == "vlm":
+        per = _vlm_layout(cfg)[1]
+        selfs = unstack(params["self_blocks"])
+        for g, cross in enumerate(unstack(params["cross_blocks"])):
+            for i in range(g * per, (g + 1) * per):
+                x = _decode_attn(cfg, selfs[i], x, cache, i, pos, ctx)
+                x = _ffn(cfg, selfs[i], x, ctx)
+            h, _ = L.attn_decode(cross["attn"],
+                                 L.norm_apply(cross["ln1"], x), None, None,
+                                 pos, theta=cfg.rope_theta, ctx=ctx,
+                                 cross_kv=(cache["xk"][g], cache["xv"][g]))
+            x = _cross_mlp(cross, _gated(cross["gate_attn"], x, h), ctx)
     elif cfg.family == "ssm":
         x = L.norm_apply(params["ln0"], x)
-        for i, blk in enumerate(blocks):
+        for i, blk in enumerate(unstack(params["blocks"])):
             x = _rwkv_step(cfg, blk, x, cache, i)
     else:  # hybrid
+        blocks = unstack(params["blocks"])
         for g, (lo, hi) in enumerate(_hybrid_groups(cfg)):
             x = _shared_step(cfg, params["shared"], x, cache, g, pos, ctx)
             for i in range(lo, hi):

@@ -18,7 +18,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.layers import NO_SHARD, ShardCtx, lm_head_apply
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import family_module, get_model
 from repro_torch.optim import adamw
 from repro_torch.parallel.axes import tree_leaves, tree_unflatten
 
@@ -76,6 +76,11 @@ def n_microbatches(cfg: ArchConfig, batch: int,
     return A
 
 
+# the families whose train step is ported: the moe family's aux loss and the
+# media that vlm and audio batches carry are not held against the reference
+TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
                     ctx: ShardCtx = NO_SHARD):
     """Returns (train_step(state, batch) -> (state, metrics), opt_cfg).
@@ -87,7 +92,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
     gradient accumulation: each microbatch's gradient cast to float32, added
     to the accumulator and cast to its dtype (float32, or bf16 when
     cfg.opt_dtype is "bf16"), the sum divided by the count in float32."""
-    get_model(cfg)                            # raises for an unported family
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training of the {cfg.family} family is not ported "
+            f"yet (ported: {', '.join(TRAINED_FAMILIES)})")
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         moment_dtype="bf16" if cfg.opt_dtype == "bf16" else "fp32")
     acc_dtype = torch.bfloat16 if cfg.opt_dtype == "bf16" else torch.float32
@@ -139,9 +147,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
 
 def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NO_SHARD):
     get_model(cfg)
+    family = family_module(cfg)
 
     def prefill_step(params, batch):
-        return lm.prefill(params, cfg, batch["tokens"], ctx=ctx)
+        return family.prefill(params, cfg, batch["tokens"],
+                              media=batch.get("media"), ctx=ctx)
 
     return prefill_step
 
@@ -150,9 +160,11 @@ def make_decode_step(cfg: ArchConfig, ctx: ShardCtx = NO_SHARD):
     """decode_step(params, cache, tokens (B, 1), pos (B,)) -> (next_token,
     logits, cache); the cache is updated in place (``lm.decode``)."""
     get_model(cfg)
+    family = family_module(cfg)
 
     def decode_step(params, cache, tokens, pos):
-        logits, cache = lm.decode(params, cfg, cache, tokens, pos, ctx=ctx)
+        logits, cache = family.decode(params, cfg, cache, tokens, pos,
+                                      ctx=ctx)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, cache
 

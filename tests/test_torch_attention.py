@@ -115,6 +115,17 @@ def test_flash_plain_right_aligned_queries(causal, window):
            "f32")
 
 
+@pytest.mark.parametrize("Skv", [64, 1])
+def test_flash_plain_fewer_keys_than_queries(Skv):
+    """Skv < S without a causal mask or a window (cross-attention to fewer
+    media tokens than text tokens): every query sees every key, as in the
+    oracle."""
+    (jq, jk, jv), (q, k, v) = _inputs(4, "f32", (2, 192, 8, 32),
+                                      (2, Skv, 2, 32), (2, Skv, 2, 32))
+    want = naive(jq, jk, jv, causal=False, window=0)
+    _close(ops.flash_attention(q, k, v, causal=False, window=0), want, "f32")
+
+
 @pytest.mark.parametrize("S,q_chunk,kv_chunk", [(100, 32, 48), (37, 512, 512),
                                                 (1, 16, 16)])
 def test_flash_plain_ragged_lengths(S, q_chunk, kv_chunk):
@@ -248,6 +259,9 @@ FLASH_SCHEDULE_CASES = {
     "one_query": (1, 77, True, 0),
     "skv_ragged_tile": (100, 300, True, 40),
     "full_window": (300, 300, False, 50),
+    "whisper_encoder": (1500, 1500, False, 0),
+    "cross_fewer_keys": (1088, 1024, False, 0),
+    "cross_one_key": (300, 1, False, 0),
 }
 
 
@@ -279,6 +293,20 @@ def test_flash_schedule_covers_visible_keys(case):
     if causal:
         work = [n for *_, n in sched]
         assert work == sorted(work, reverse=True)
+
+
+def test_flash_schedule_fewer_keys_than_queries():
+    """S = 1088 queries on Skv = 1024 keys, not causal, no window (a
+    negative offset): 9 query tiles, the last one first, each visiting all
+    16 key tiles; a causal mask or a window there is refused."""
+    sched = ak.flash_schedule(1088, 1024, causal=False, window=0)
+    assert sched == [(s0, min(s0 + 128, 1088), 0, 1024, 16)
+                     for s0 in range(1024, -1, -128)]
+    q = torch.zeros((1, 8, 2, 32))
+    kv = torch.zeros((1, 4, 2, 32))
+    for kw in (dict(causal=True, window=0), dict(causal=False, window=2)):
+        with pytest.raises(ValueError, match="right-aligned"):
+            ak.flash_attention(q, kv, kv, **kw)
 
 
 def _flash_rounded_p(q, k, v, *, causal, window, kv_chunk, split=False):

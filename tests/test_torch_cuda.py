@@ -209,6 +209,12 @@ FLASH_CASES = {
     # a window narrower than the query tile at D=32: rows whose first key
     # tile is wholly masked (bf16 once wrote NaN there)
     "d32_window": (2, 100, 100, 4, 4, 32, True, 16),
+    # whisper-large-v3's encoder; cross-attention to fewer keys than
+    # queries (llama-3.2-vision's 1024 media tokens); qwen3-moe's group of
+    # 16 query heads per kv head
+    "whisper_encoder": (4, 1500, 1500, 20, 20, 64, False, 0),
+    "cross_fewer_keys": (4, 1088, 1024, 64, 8, 128, False, 0),
+    "group16": (4, 1024, 1024, 64, 4, 128, True, 0),
 }
 # (B, Smax, H, Hkv, D, window, kv_len); "one_key" and "window_one_block"
 # leave every cluster block but one without a key
@@ -220,6 +226,10 @@ DECODE_CASES = {
     "zamba2": (4, 1088, 32, 32, 64, 4096, (1088,) * 4),
     "one_key": (4, 1088, 32, 8, 128, 0, (1, 1, 1, 1)),
     "window_one_block": (4, 1088, 32, 8, 128, 1, (1088, 700, 5, 1)),
+    # qwen3-moe's group of 16 (DECODE_MAX_GROUP); whisper's static cross
+    # cache of 1500 encoder frames, every row live
+    "group16": (4, 1088, 64, 4, 128, 0, (1088, 700, 1, 530)),
+    "cross_static": (4, 1500, 20, 20, 64, 0, (1500,) * 4),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 

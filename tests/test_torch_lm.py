@@ -1,11 +1,14 @@
 """Parity of the port's LMs (repro_torch.configs, .parallel.axes, .models,
-.launch.serve) with the JAX package on the CPU: the dense family and the
-recurrent ones, ssm (RWKV6) and hybrid (Mamba2 + shared attention).
+.launch.serve) with the JAX package on the CPU: the dense family, the
+recurrent ones, ssm (RWKV6) and hybrid (Mamba2 + shared attention), and the
+moe, vlm (cross-attention) and audio (encoder-decoder) families.
 
 Configs and parameter trees are compared field for field and path for
-path.  For the smoke-reduced mistral-nemo-12b, stablelm-1.6b, rwkv6-1.6b and
-zamba2-1.2b (float32), the weights are the JAX package's own init from
-``jax.random.PRNGKey(0)``, carried across by ``convert.lm_params_from_jax``.
+path.  For the smoke-reduced mistral-nemo-12b, stablelm-1.6b, rwkv6-1.6b,
+zamba2-1.2b, deepseek-moe-16b, qwen3-moe-235b-a22b, llama-3.2-vision-90b
+and whisper-large-v3 (float32), the weights are the JAX package's own init
+from ``jax.random.PRNGKey(0)``, carried across by
+``convert.lm_params_from_jax``.
 Each layer is held to 1e-5 of its output's scale: the largest difference is
 at most 1e-5 times the largest reference value (the two packages sum the
 float32 projections in different orders, so entries near zero differ by
@@ -25,27 +28,35 @@ import repro.configs as jconfigs
 from repro.models import get_model as jget_model
 from repro.models import layers as JL
 from repro.models import param_count as jparam_count
+from repro.models.registry import active_param_count as jactive_count
 from repro_torch import configs as tconfigs
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.launch import serve
-from repro_torch.models import get_model, layers as TL, param_count
-from repro_torch.models.lm import PORTED_FAMILIES
+from repro_torch.models import (active_param_count, get_model,
+                                layers as TL, param_count)
 from repro_torch.parallel.axes import init_params, tree_leaves_with_path
 
 CPU = "cpu"
 DENSE = [a for a in tconfigs.ARCH_IDS
          if tconfigs.get_arch(a).family == "dense"]
-PORTED = [a for a in tconfigs.ARCH_IDS
-          if tconfigs.get_arch(a).family in PORTED_FAMILIES]
+PORTED = list(tconfigs.ARCH_IDS)
 PARITY_ARCHS = ["mistral-nemo-12b", "stablelm-1.6b"]
 RECURRENT = ["rwkv6-1.6b", "zamba2-1.2b"]
+# the moe, vlm and audio families
+ZOO = ["deepseek-moe-16b", "qwen3-moe-235b-a22b", "llama-3.2-vision-90b",
+       "whisper-large-v3"]
 # the leaf whose logical axes each family's test checks
 AXES_LEAF = {"dense": (("blocks", "attn", "wq"),
                        ("layers", "embed", "heads", "head_dim")),
              "ssm": (("blocks", "tm", "bonus"),
                      ("layers", "heads", "head_dim")),
              "hybrid": (("shared", "attn", "wq"),
-                        ("embed", "heads", "head_dim"))}
+                        ("embed", "heads", "head_dim")),
+             "moe": (("blocks", "moe", "wg"),
+                     ("layers", "experts", "embed", "expert_ff")),
+             "vlm": (("cross_blocks", "gate_attn"), ("layers", None)),
+             "audio": (("dec_blocks", "xattn", "wk"),
+                       ("layers", "embed", "kv_heads", "head_dim"))}
 MODEL_TOL = dict(rtol=2e-4, atol=2e-3)
 LAYER_TOL = 1e-5
 
@@ -90,6 +101,19 @@ def test_param_count_recurrent(arch_id, count):
     assert param_count(cfg) == count == jparam_count(jconfigs.get_arch(arch_id))
 
 
+@pytest.mark.parametrize("arch_id,count,active", [
+    ("deepseek-moe-16b", 16_377_694_208, 2_830_616_576),
+    ("qwen3-moe-235b-a22b", 235_093_610_496, 22_190_739_456),
+    ("llama-3.2-vision-90b", 87_666_794_536, 87_666_794_536),
+    ("whisper-large-v3", 1_601_198_080, 1_601_198_080)])
+def test_param_count_zoo(arch_id, count, active):
+    """Total and activated parameters (the MoE's top-k and shared experts
+    only) equal the reference's."""
+    cfg, jcfg = tconfigs.get_arch(arch_id), jconfigs.get_arch(arch_id)
+    assert param_count(cfg) == count == jparam_count(jcfg)
+    assert active_param_count(cfg) == active == jactive_count(jcfg)
+
+
 @pytest.mark.parametrize("reduce", [False, True], ids=["full", "smoke"])
 @pytest.mark.parametrize("arch_id", PORTED)
 def test_param_tree_paths_and_shapes(arch_id, reduce):
@@ -113,11 +137,12 @@ def test_param_tree_paths_and_shapes(arch_id, reduce):
     assert tdefs.axes == jdefs.axes == axes
 
 
-@pytest.mark.parametrize("arch_id", [a for a in tconfigs.ARCH_IDS
-                                     if a not in PORTED])
-def test_unported_families_raise(arch_id):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(tconfigs.smoke_reduce(tconfigs.get_arch(arch_id)))
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(
+        tconfigs.smoke_reduce(tconfigs.get_arch("mistral-nemo-12b")),
+        family="diffusion")
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(cfg)
 
 
 def test_init_params_rules_and_seeding():
@@ -261,15 +286,24 @@ def test_model_matches_reference(pair):
 def test_decode_matches_prefill_tail(arch_id):
     """The port's own KV-cache path (its own seeded init): prefill S tokens,
     decode token S; the logits match a full forward's last position (as
-    tests/test_smoke_archs.py holds the reference)."""
+    tests/test_smoke_archs.py holds the reference).  The vlm and audio
+    models take seeded media, and the vlm cross blocks' zero-initialised
+    gates are opened to 0.5 so that their attention counts."""
     cfg = tconfigs.smoke_reduce(tconfigs.get_arch(arch_id))
     model = get_model(cfg)
     params = model.init(0, device=CPU)
+    if "cross_blocks" in params:
+        for gate in ("gate_attn", "gate_mlp"):
+            params["cross_blocks"][gate].fill_(0.5)
     B, S = 2, 16
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
-    want, _ = model.apply(params, tokens, device=CPU)
-    _, cache = model.prefill(params, tokens[:, :S], max_len=S + 1, device=CPU)
+    ms = model.media_struct(B)
+    media = None if ms is None else 0.02 * torch.randn(ms.shape,
+                                                       generator=gen)
+    want, _ = model.apply(params, tokens, media=media, device=CPU)
+    _, cache = model.prefill(params, tokens[:, :S], media=media,
+                             max_len=S + 1, device=CPU)
     got, _ = model.decode(params, cache, tokens[:, S:], torch.full((B,), S),
                           device=CPU)
     np.testing.assert_allclose(_np(got), _np(want[:, -1]), **MODEL_TOL)
@@ -385,11 +419,14 @@ def test_recurrent_model_matches_reference(rpair):
     _greedy_parity(jmodel, jp, model, tp, toks[:, :S], S + steps, steps)
 
 
-def _greedy_parity(jmodel, jp, model, tp, prompt, max_len, steps):
+def _greedy_parity(jmodel, jp, model, tp, prompt, max_len, steps,
+                   media=None):
     B, S = prompt.shape
+    jmedia, tmedia = (None, None) if media is None else \
+        (jnp.asarray(media), torch.from_numpy(media))
     jlog, jcache = jax.jit(jmodel.prefill, static_argnames=("max_len",))(
-        jp, jnp.asarray(prompt, jnp.int32), max_len=max_len)
-    tlog, tcache = model.prefill(tp, torch.from_numpy(prompt),
+        jp, jnp.asarray(prompt, jnp.int32), media=jmedia, max_len=max_len)
+    tlog, tcache = model.prefill(tp, torch.from_numpy(prompt), media=tmedia,
                                  max_len=max_len, device=CPU)
     np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
     assert set(tcache) == set(jcache)
@@ -437,3 +474,77 @@ def test_serve_main_on_cpu_recurrent(arch_id, capsys):
     assert "decoded 10 tokens in" in lines[0]
     assert lines[1].startswith("[serve] sample: [")
     assert res["tokens"].shape == (2, 5)
+
+
+# ---------------------------------------------------------------------------
+# the moe, vlm and audio families against the JAX model, weights carried
+# across
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=ZOO)
+def zpair(request):
+    """The smoke config's JAX init, with the vlm cross blocks' gates
+    opened (they start at zero and tanh(0) = 0, which would keep the cross
+    attention and its MLP out of the logits), and seeded media for the vlm
+    and audio models (random, so that the keys differ)."""
+    jcfg = jconfigs.smoke_reduce(jconfigs.get_arch(request.param))
+    jmodel = jget_model(jcfg)
+    jparams = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    rs = np.random.RandomState(4)
+    if "cross_blocks" in jparams:
+        for gate in ("gate_attn", "gate_mlp"):
+            shape = jparams["cross_blocks"][gate].shape
+            jparams["cross_blocks"][gate] = rs.uniform(
+                0.3, 0.8, shape).astype(np.float32)
+    ms = jmodel.media_struct(2)
+    media = None if ms is None else \
+        (0.02 * rs.randn(*ms.shape)).astype(np.float32)
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch(request.param))
+    return jcfg, jparams, cfg, lm_params_from_jax(jparams, device=CPU), media
+
+
+def test_zoo_model_matches_reference(zpair):
+    """apply (logits and the MoE aux loss), prefill with its whole cache
+    (the cross-attention keys and values included) and 8 greedy decode
+    steps: within the smoke tolerance, greedy tokens equal."""
+    jcfg, jp, cfg, tp, media = zpair
+    jmodel, model = jget_model(jcfg), get_model(cfg)
+    B, S, steps = 2, 16, 8
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S + 1))
+    jmedia = None if media is None else jnp.asarray(media)
+    tmedia = None if media is None else torch.from_numpy(media)
+    jl, jaux = jax.jit(jmodel.apply)(jp, jnp.asarray(toks, jnp.int32),
+                                     media=jmedia)
+    tl, taux = model.apply(tp, torch.from_numpy(toks), media=tmedia,
+                           device=CPU)
+    np.testing.assert_allclose(_np(tl), _np(jl), **MODEL_TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **MODEL_TOL)
+    assert (float(taux) > 0) == (cfg.family == "moe")
+    _greedy_parity(jmodel, jp, model, tp, toks[:, :S], S + steps, steps,
+                   media)
+
+
+@pytest.mark.parametrize("arch_id", ZOO)
+def test_serve_main_on_cpu_zoo(arch_id, capsys):
+    """serve.main for the moe, vlm and audio families, the latter two with
+    the reference's stub media."""
+    res = serve.main(["--arch", arch_id, "--batch", "2", "--prompt-len", "8",
+                      "--tokens", "5", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2
+    assert lines[0].startswith(f"[serve] {arch_id}-smoke: prefill 2x8 in ")
+    assert "decoded 10 tokens in" in lines[0]
+    assert res["tokens"].shape == (2, 5)
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch(arch_id))
+    assert ("xk" in res["cache"]) == (cfg.family in ("vlm", "audio"))
+
+
+@pytest.mark.parametrize("arch_id", ZOO)
+def test_train_step_refuses_the_families_it_does_not_train(arch_id):
+    """The moe, vlm and audio families serve but do not train yet (the
+    train step takes no media and its MoE aux loss is not held against the
+    reference): make_train_step says so instead of training them."""
+    from repro_torch.models.steps import make_train_step
+    cfg = tconfigs.smoke_reduce(tconfigs.get_arch(arch_id))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_train_step(cfg)
