@@ -120,7 +120,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
            0.005; time_ms per model, the GLM and N.N. fits' share of the
            card's CV time and the device operations of one fit of each
            (torch.profiler); forest_infer launched
-  sweep    the §5 fleet sweep at 500 nodes (fifo and atlas-fifo x 1 seed
+  sweep    the §5 fleet sweep at 300 nodes (fifo and atlas-fifo x 1 seed
            x baseline and kitchen_sink, map_heavy, per-node hazard) four
            times: serial on the card, broker on the card with a model
            registry, a 2-worker spawn process pool on the card, and serial
@@ -178,33 +178,51 @@ Phases, each of which raises on failure (the script then exits non-zero):
            attempts), the live tcp sink's overhead recorded, not gated
   train_kernels
            flash_attention, rwkv6_scan and mamba2_ssd under autograd at
-           the training microbatches' shapes, bf16: each Function's
-           forward torch.equal to the bare kernel and within the kernel's
-           tolerance of the plain version, its gradients within
-           TRAIN_GRAD_TOL of autograd through the plain version; times of
-           forward + backward, the plain version's and SDPA's
-  train_step
-           stablelm-1.6b (8 steps), rwkv6-1.6b and zamba2-1.2b (3 steps)
-           at full width and depth through make_train_step: launches equal
-           to the derived counts, every gradient leaf finite and not all
-           zero, the first loss within TRAIN_LOSS_RTOL of the plain
-           versions'; losses on the stream and on a fixed batch, step
-           times, peak memory, a profiled step's idle share; for
+           the training microbatches' shapes, bf16 (attention also at the
+           vlm's and whisper's non-causal cross-attention and whisper's
+           1500 x 1500 encoder): each Function's forward torch.equal to
+           the bare kernel and within the kernel's tolerance of the plain
+           version, its gradients within TRAIN_GRAD_TOL of autograd
+           through the plain version; times of forward + backward, the
+           plain version's and SDPA's
+  train_step, train_step_rwkv6, train_step_zamba2, train_step_moe,
+  train_step_whisper
+           stablelm-1.6b (8 steps), rwkv6-1.6b, zamba2-1.2b and
+           whisper-large-v3 (3 steps; 1500 seeded frames a sequence; from
+           the reference's draw with the attention fan-in fixed, the first
+           gradient norm by depth from both draws recorded) at full width
+           and depth, deepseek-moe-16b at full width cut to 4 layers (3
+           steps, bf16 moments), through make_train_step:
+           launches equal to the derived counts, every gradient leaf
+           finite and not all zero, the first loss within TRAIN_LOSS_RTOL
+           of the plain versions'; losses on the stream and on a fixed
+           batch, step times, peak memory, a profiled step's idle share;
+           for MoE the aux loss and the pairs dropped a step; for
            stablelm-1.6b the init witness (_init_witness), whose loss must
            fall
+  train_vlm
+           the smoke-reduced llama-3.2-vision-90b in bf16, gates opened,
+           with bf16 and with float32 media: 3 steps through the kernels
+           against 3 through the plain versions, exact launches, losses
+           within TRAIN_LOSS_RTOL
   train_elastic
            repro_torch.launch.train.main on stablelm-1.6b at full width
            (ATLAS on): committed steps, launches, the bytes and seconds of
            each checkpoint save and restore, a restore with its digests
            checked
+  compression
+           optim/compression.py's compress, decompress and
+           compressed_psum (one process) on the card torch.equal to the
+           CPU, float32 and bf16
 
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --timing {forest,scan} [--src DIR]
+    python3 chip_smoke.py --timing {forest,scan,serve} [--src DIR]
 
-only times the forest kernels (forest_timing at TIMED_ROWS) or the scan
-kernels (scan_timing), importing the port from DIR (default: this
+only times the forest kernels (forest_timing at TIMED_ROWS), the scan
+kernels (scan_timing) or serving's prefill and decode steps
+(serve_timing), importing the port from DIR (default: this
 checkout's src/), and prints the timing as its last JSON line: run it on
 an older tree from git archive and on this one in turns to compare two
 versions on one card.  Without a CUDA device, or without
@@ -312,6 +330,9 @@ FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 4, "llama-3.2-vision-90b": 10}
 # 448-token text context (each request also carries 1500 frames, 30 s of
 # audio); the other families take serve's 1024
 FAMILY_PROMPT = {"whisper-large-v3": 64}
+# --timing serve: the archs and the timed runs of each (after a warm-up)
+SERVE_TIMED = ("mistral-nemo-12b", "deepseek-moe-16b", "whisper-large-v3")
+SERVE_TIMED_RUNS = 2
 FAMILY_PHASE = {"deepseek-moe-16b": "serve_moe",
                 "qwen3-moe-235b-a22b": "serve_qwen3",
                 "llama-3.2-vision-90b": "serve_vlm",
@@ -361,8 +382,10 @@ CV_DENSE_TOL = 0.005                             # GLM, N.N.: float sums
 # kitchen_sink ATLAS cell makes about 333,000 decisions, some 70 s on the
 # card and 150 s on the CPU per run (PERF.md); with the training phases the
 # script neared its time limit (1,065 s of 1,200 on an H100), so the fleet
-# is cut to SWEEP_FLEET nodes too (the phase 310 s -> 133 s there)
-SWEEP_FLEET = 500
+# is cut to SWEEP_FLEET nodes too (the phase 310 s -> 133 s at 500 nodes;
+# cut to 300 when the moe and audio training phases took the script to
+# 1,058 s)
+SWEEP_FLEET = 300
 SWEEP = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
              scenarios=("baseline", "kitchen_sink"), workloads=("map_heavy",),
              fleet_sizes=(SWEEP_FLEET,), hazard="per-node")
@@ -405,16 +428,41 @@ OBS_ATTEMPTS = 3
 OBS_PAIRS = {"ndjson": 9, "live_tcp": 3}
 
 # training: launch/train.py's default global batch and sequence; the train
-# steps run at full width and depth (stablelm-1.6b 8 steps, the recurrent
-# models 3, cut for time); the kernels' training shapes are those steps'
-# microbatches: (B, S, Skv, H, Hkv, D, causal, window) for attention,
+# steps run at full width and depth (stablelm-1.6b 8 steps, the others 3,
+# cut for time), but deepseek-moe-16b at TRAIN_DEPTH: 1 dense and 3 MoE
+# layers (2.3 B parameters at ~20 bytes each inside a step, ~45 GB; all 28
+# layers would be ~330 GB); the kernels' training shapes are those steps'
+# microbatches, and the vlm's cross-attention at llama-3.2-vision-90b's
+# (accum 16: one sequence on 1024 media tokens), which the card cannot
+# train whole: (B, S, Skv, H, Hkv, D, causal, window) for attention,
 # (B, S, H, Dh) for rwkv6, (B, S, H, P, N) for mamba2
 TRAIN_ARCH = "stablelm-1.6b"
-TRAIN_ARCHS = ("stablelm-1.6b", "rwkv6-1.6b", "zamba2-1.2b")
+TRAIN_ARCHS = ("stablelm-1.6b", "rwkv6-1.6b", "zamba2-1.2b",
+               "deepseek-moe-16b", "whisper-large-v3")
+TRAIN_PHASE = {"stablelm-1.6b": "train_step",
+               "rwkv6-1.6b": "train_step_rwkv6",
+               "zamba2-1.2b": "train_step_zamba2",
+               "deepseek-moe-16b": "train_step_moe",
+               "whisper-large-v3": "train_step_whisper"}
 TRAIN_BATCH, TRAIN_SEQ = 16, 256
-TRAIN_STEPS = {"stablelm-1.6b": 8, "rwkv6-1.6b": 3, "zamba2-1.2b": 3}
+TRAIN_STEPS = {"stablelm-1.6b": 8, "rwkv6-1.6b": 3, "zamba2-1.2b": 3,
+               "deepseek-moe-16b": 3, "whisper-large-v3": 3}
+TRAIN_DEPTH = {"deepseek-moe-16b": 4}
+FAN_IN_FIXED = ("whisper-large-v3",)
 TRAIN_FLASH_CASES = {"stablelm": (8, 256, 256, 32, 32, 64, True, 0),
-                     "zamba2": (2, 256, 256, 32, 32, 64, True, 4096)}
+                     "zamba2": (2, 256, 256, 32, 32, 64, True, 4096),
+                     "vlm_cross": (1, 256, 1024, 64, 8, 128, False, 0),
+                     "whisper_encoder": (2, 1500, 1500, 20, 20, 64, False,
+                                         0),
+                     "whisper_cross": (2, 256, 1500, 20, 20, 64, False, 0)}
+# train_vlm: the smoke-reduced llama-3.2-vision-90b in bf16 with its gates
+# opened, at the full config's accum_steps, with bf16 and with float32
+# media (the data stream's default dtype)
+TRAIN_VLM = "llama-3.2-vision-90b"
+TRAIN_VLM_MEDIA = ("bfloat16", "float32")
+# compression: a gradient-sized float32 and bf16 input, not a multiple of
+# the block
+COMPRESS_NUMEL = (1 << 24) + 77
 TRAIN_RWKV = (8, 256, 32, 64)
 TRAIN_SSD = (2, 256, 64, 64, 64)
 # a gradient through the kernel's forward against autograd through the
@@ -427,9 +475,15 @@ TRAIN_GRAD_TOL = 2e-2
 # the first step's loss through the kernels against the plain versions:
 # the bf16 forward differs by the kernels' rounding in every layer
 TRAIN_LOSS_RTOL = 5e-3
-# the first-step gradient norm of TRAIN_ARCH cut to these depths, from two
-# inits (_init_witness)
-WITNESS_DEPTHS = (2, 4, 8, 16, 24)
+# the first-step gradient norm cut to these depths (the audio family:
+# this many encoder and decoder layers each), from two inits
+# (_grad_norms_by_init)
+WITNESS_DEPTHS = {"stablelm-1.6b": (2, 4, 8, 16, 24),
+                  "whisper-large-v3": (1, 8, 32)}
+# the archs whose train_step runs from the reference's draw with its
+# attention projections at their full fan-in (_fan_in_d_model): from the
+# reference's own init whisper-large-v3's first gradient norm is ~1e27 at
+# full depth, whose square overflows float32 in AdamW's clip
 # train_elastic: launch/train.py's flags for the phase
 ELASTIC = dict(steps=8, checkpoint_every=8)
 
@@ -1877,6 +1931,33 @@ def scan_timing(torch, dev) -> dict:
     return out
 
 
+def serve_timing(torch, dev) -> dict:
+    """serve's traffic through launch/serve.py's generate for each arch
+    of SERVE_TIMED (phase_serve's and phase_serve_family's configs and
+    seeded weights): a warm-up run, then SERVE_TIMED_RUNS runs, each
+    one's prefill s and decode ms a step on the host clock.  Runs against
+    any src/ tree of the port, so two versions can be timed in turns in
+    one chip call (``--timing serve --src``)."""
+    from repro_torch.launch import serve
+    out: dict = {}
+    for arch in SERVE_TIMED:
+        cfg = _family_config(arch)
+        model, params, prompt, media, _, _ = _serve_setup(
+            torch, dev, cfg, FAMILY_PROMPT.get(arch, SERVE_PROMPT))
+        runs = []
+        for _ in range(1 + SERVE_TIMED_RUNS):
+            res = serve.generate(model, params, prompt, SERVE_TOKENS,
+                                 device=dev, media=media)
+            runs.append({"prefill_s": res["prefill_s"],
+                         "decode_step_ms": 1e3 * res["decode_s"]
+                         / (SERVE_TOKENS - 1)})
+            del res
+        out[arch] = runs[1:]
+        del params, media
+        torch.cuda.empty_cache()
+    return out
+
+
 def _carry(torch, fn, args, seq, cut):
     """One call, then the sequence cut at ``cut`` into two calls with the
     state carried; the positions in ``seq`` are the time-major inputs."""
@@ -2042,33 +2123,47 @@ def _family_config(arch: str):
     return cfg
 
 
-def _moe_drops(torch, cfg, model, params, prompt, dev) -> dict:
-    """The (token, expert) pairs the capacity-bounded MoE layers of one
-    prefill of the serving prompt drop, per layer: each layer's router
-    recomputed on its own input by a tap on layers.moe_apply (what the
-    layer computes is unchanged; the one group and no chunking at this
-    size are checked)."""
+@contextlib.contextmanager
+def _moe_tap(torch, cfg):
+    """While open, every call of layers.moe_apply also appends (pairs
+    dropped, pairs) to the list it yields: the layer's router recomputed
+    on its own input, outside autograd (what the layer computes is
+    unchanged).  The one group and no chunking of these sizes are
+    checked."""
     from repro_torch.models import layers as L
     m = cfg.moe
-    T = prompt.numel()
-    check(not m.chunk_tokens or T <= m.chunk_tokens,
-          f"{cfg.name}: the drop count assumes one dispatch chunk")
-    C = L.moe_capacity(cfg, T, False)
-    dropped: list = []
+    counts: list = []
     saved = L.moe_apply
 
     def tap(p, x, cfg_, ctx=L.NO_SHARD, dropless=False):
-        _, _, topi = L.moe_route(p, x.reshape(1, T, -1), cfg_)
-        count = torch.bincount(topi.reshape(-1), minlength=m.n_experts)
-        dropped.append(int((count - C).clamp(min=0).sum()))
+        T = x.shape[0] * x.shape[1]
+        check(ctx.n_groups == 1 and not dropless
+              and (not m.chunk_tokens or T <= m.chunk_tokens),
+              f"{cfg.name}: the drop count assumes one group and chunk")
+        with torch.no_grad():
+            _, _, topi = L.moe_route(p, x.reshape(1, T, -1), cfg_)
+            count = torch.bincount(topi.reshape(-1), minlength=m.n_experts)
+            C = L.moe_capacity(cfg_, T, False)
+            counts.append((int((count - C).clamp(min=0).sum()),
+                           T * m.top_k))
         return saved(p, x, cfg_, ctx, dropless)
     L.moe_apply = tap
     try:
-        model.prefill(params, prompt, max_len=prompt.shape[1], device=dev)
+        yield counts
     finally:
         L.moe_apply = saved
-    pairs = T * m.top_k
-    return {"capacity_factor": m.capacity_factor, "slots_per_expert": C,
+
+
+def _moe_drops(torch, cfg, model, params, prompt, dev) -> dict:
+    """The (token, expert) pairs the capacity-bounded MoE layers of one
+    prefill of the serving prompt drop, per layer (_moe_tap)."""
+    from repro_torch.models import layers as L
+    with _moe_tap(torch, cfg) as counts:
+        model.prefill(params, prompt, max_len=prompt.shape[1], device=dev)
+    dropped = [d for d, _ in counts]
+    pairs = prompt.numel() * cfg.moe.top_k
+    return {"capacity_factor": cfg.moe.capacity_factor,
+            "slots_per_expert": L.moe_capacity(cfg, prompt.numel(), False),
             "pairs_per_layer": pairs, "dropped_per_layer": dropped,
             "dropped": sum(dropped),
             "dropped_share": sum(dropped) / (pairs * len(dropped))}
@@ -2924,9 +3019,14 @@ def phase_train_kernels(torch, dev):
     and its gradients (the plain backward from the kernel's forward) within
     TRAIN_GRAD_TOL of autograd through the plain version on the same
     inputs and cotangents, each gradient relative to its largest plain
-    magnitude.  Attention's backward recomputes the plain forward, so its
-    gradients equal the plain version's: its kernel is seen by the output
-    check alone.  Times by CUDA events: the Function's forward alone and
+    magnitude; the shapes of TRAIN_FLASH_CASES (causal self-attention,
+    the vlm's and whisper's non-causal cross-attention to more keys than
+    queries, whisper's 1500 x 1500 encoder).  The plain backward keeps the
+    float32 scores of a call: 360 MB at the encoder's shape.  Attention's
+    backward recomputes the plain forward (in one block, where the plain
+    version walks 512 x 512 chunks), so its gradients are the plain
+    version's up to that chunking: its kernel is seen by the output check
+    alone.  Times by CUDA events: the Function's forward alone and
     forward + backward (the plain backward's share is the difference),
     autograd through the plain version, and for attention
     scaled_dot_product_attention's forward + backward (a yardstick)."""
@@ -2990,11 +3090,11 @@ def phase_train_kernels(torch, dev):
         if kernel == "flash_attention":
             qkv = [a.transpose(1, 2) for a in args]
 
-            def sdpa():
+            def sdpa(causal=shape[6]):
                 leaves = [a.detach().requires_grad_() for a in qkv]
                 with torch.enable_grad():
-                    o = F.scaled_dot_product_attention(*leaves,
-                                                       is_causal=True)
+                    o = F.scaled_dot_product_attention(
+                        *leaves, is_causal=causal, enable_gqa=True)
                     torch.autograd.grad(o.float().sum(), leaves)
             rec["library_ms"] = _time_ms(torch, sdpa, n=10, warmup=2)
         timing[f"{kernel}/{case}"] = rec
@@ -3017,8 +3117,13 @@ def _train_launches(cfg, steps: int) -> dict:
     from repro_torch.models.steps import n_microbatches
     per = n_microbatches(cfg, TRAIN_BATCH) * (1 if cfg.remat == "none"
                                               else 2) * steps
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
+        # one attention a layer: self, or a vlm cross block's to the media
         want = {"flash_attention": cfg.n_layers * per}
+    elif cfg.family == "audio":
+        # the encoder's self-attention, the decoder's self and cross
+        want = {"flash_attention": (cfg.enc_dec.n_enc_layers
+                                    + 2 * cfg.n_layers) * per}
     else:
         chunks = TRAIN_SEQ // ref.divisor_chunk(
             TRAIN_SEQ, ref.RWKV_CHUNK if cfg.family == "ssm"
@@ -3068,6 +3173,8 @@ def _first_gradients(torch, state, grad_norm, opt) -> dict:
     from repro_torch.parallel.axes import tree_leaves_with_path
     scale = min(1.0, opt.grad_clip / max(grad_norm, 1e-9)) \
         if opt.grad_clip > 0 else 1.0
+    check(scale > 0, f"the first gradient norm {grad_norm} leaves AdamW's "
+          "clip nothing of it")
     out = {"not_finite": [], "all_zero": [], "clip_scale": scale}
     norms, damped, total = {}, 0, 0
     for path, mom in tree_leaves_with_path(state["opt"]["m"]):
@@ -3086,74 +3193,106 @@ def _first_gradients(torch, state, grad_norm, opt) -> dict:
     return out
 
 
-def _batch_loss(torch, cfg, params, tokens, ctx=None) -> float:
-    """The train step's loss of ``tokens`` at ``params`` without a step:
-    the microbatches' mean, under no_grad (the bare kernels, or the plain
-    versions with ``ctx``)."""
+def _batch_loss(torch, cfg, params, tokens, ctx=None, media=None) -> float:
+    """The train step's loss of ``tokens`` (and ``media``) at ``params``
+    without a step: the microbatches' mean, under no_grad (the bare
+    kernels, or the plain versions with ``ctx``)."""
     from repro_torch.models.layers import NO_SHARD
     from repro_torch.models.steps import n_microbatches, train_loss
-    A = n_microbatches(cfg, tokens.shape[0])
+    B = tokens.shape[0]
+    A = n_microbatches(cfg, B)
+    mbs = [None] * A if media is None else media.reshape(
+        A, B // A, *media.shape[1:])
     with torch.no_grad():
         return float(sum(
-            train_loss(cfg, params, mb.long(), ctx or NO_SHARD)[0]
-            for mb in tokens.reshape(A, tokens.shape[0] // A, -1)) / A)
+            train_loss(cfg, params, mb.long(), ctx or NO_SHARD, media=md)[0]
+            for mb, md in zip(tokens.reshape(A, B // A, -1), mbs)) / A)
 
 
 def _fan_in_d_model(cfg, params):
-    """Rescale, in place, seeded attention projections from the
-    reference's fan-in (the second-to-last axis, repro/parallel/axes.py:
-    199: the heads of wq/wk/wv, the head dim of wo) to the fan-in of all
-    their input axes (d_model; heads x head_dim for wo), the draw a 2-d
-    (d_in, d_out) projection gets."""
-    attn = params["blocks"]["attn"]
-    for name in ("wq", "wk", "wv"):          # (L, d_model, heads, head_dim)
-        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
-    attn["wo"].mul_(attn["wo"].shape[-3] ** -0.5)   # (L, heads, hd, d)
+    """Rescale, in place, seeded attention projections (self and cross, in
+    every stacked block tree) from the reference's fan-in (the
+    second-to-last axis, repro/parallel/axes.py:199: the heads of
+    wq/wk/wv, the head dim of wo) to the fan-in of all their input axes
+    (d_model; heads x head_dim for wo), the draw a 2-d (d_in, d_out)
+    projection gets."""
+    for stack in ("blocks", "enc_blocks", "dec_blocks"):
+        for kind in ("attn", "xattn"):
+            attn = params.get(stack, {}).get(kind)
+            if attn is None:
+                continue
+            for name in ("wq", "wk", "wv"):    # (L, d_model, heads, hd)
+                attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
+            attn["wo"].mul_(attn["wo"].shape[-3] ** -0.5)   # (L, h, hd, d)
 
 
-def _first_grad_norm(torch, cfg, params, tokens, depth: int) -> float:
+def _cut_depth(cfg, params, depth: int):
+    """``cfg`` and ``params`` cut to their first ``depth`` layers (the
+    audio family: ``depth`` encoder and ``depth`` decoder layers)."""
+    from repro_torch.parallel.axes import tree_map
+    if cfg.family == "audio":
+        cut = dataclasses.replace(cfg, n_layers=depth, enc_dec=dataclasses.
+                                  replace(cfg.enc_dec, n_enc_layers=depth))
+        stacks = ("enc_blocks", "dec_blocks")
+    else:
+        cut, stacks = dataclasses.replace(cfg, n_layers=depth), ("blocks",)
+    return cut, {**params, **{k: tree_map(lambda t: t[:depth], params[k])
+                              for k in stacks}}
+
+
+def _first_grad_norm(torch, cfg, params, tokens, depth: int,
+                     media=None) -> float:
     """The first step's gradient norm of ``cfg`` cut to its first
-    ``depth`` layers: the microbatches' gradients summed in float32 and
-    divided by their count, as make_train_step does."""
+    ``depth`` layers (_cut_depth): the microbatches' gradients summed in
+    float32 and divided by their count, as make_train_step does; the norm
+    in float64 (its square can overflow float32)."""
     from repro_torch.models.steps import n_microbatches, train_loss
-    from repro_torch.parallel.axes import (tree_leaves, tree_map,
-                                           tree_unflatten)
-    cut = dataclasses.replace(cfg, n_layers=depth)
-    sub = {**params, "blocks": tree_map(lambda t: t[:depth],
-                                        params["blocks"])}
+    from repro_torch.parallel.axes import tree_leaves, tree_unflatten
+    cut, sub = _cut_depth(cfg, params, depth)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(sub)]
-    A = n_microbatches(cut, tokens.shape[0])
+    B = tokens.shape[0]
+    A = n_microbatches(cut, B)
+    mds = [None] * A if media is None else media.reshape(
+        A, B // A, *media.shape[1:])
     acc = [torch.zeros(p.shape, device=p.device) for p in leaves]
-    for mb in tokens.reshape(A, tokens.shape[0] // A, -1):
+    for mb, md in zip(tokens.reshape(A, B // A, -1), mds):
         with torch.enable_grad():
             loss, aux = train_loss(cut, tree_unflatten(sub, leaves),
-                                   mb.long())
+                                   mb.long(), media=md)
             grads = torch.autograd.grad(loss + aux, leaves,
                                         allow_unused=True)
         for a, g in zip(acc, grads):
             if g is not None:
                 a.add_(g.float())
-    return float(torch.sqrt(sum(((a / A) ** 2).sum() for a in acc)))
+    return float(torch.sqrt(sum(((a.double() / A) ** 2).sum()
+                                for a in acc)))
+
+
+def _grad_norms_by_init(torch, cfg, params, tokens, media=None) -> dict:
+    """The first step's gradient norm at WITNESS_DEPTHS[cfg's arch] from
+    the reference's init and from the same draw with its attention
+    projections at the fan-in of their input axes; ``params`` is left
+    rescaled (_fan_in_d_model).  Not counted in the launches."""
+    depths = WITNESS_DEPTHS[cfg.name]
+    norms = {}
+    for init in ("reference", "fan_in_d_model"):
+        if init == "fan_in_d_model":
+            _fan_in_d_model(cfg, params)
+        norms[init] = {d: _first_grad_norm(torch, cfg, params, tokens, d,
+                                           media) for d in depths}
+    return {"depths": list(depths), "first_grad_norm": norms}
 
 
 def _init_witness(torch, dev, cfg, opt, batches) -> dict:
     """Why the loss of TRAIN_ARCH does not fall from the reference's init,
-    measured: the first step's gradient norm at WITNESS_DEPTHS from the
-    reference's init (seed 0) and from the same draw with its attention
-    projections at the fan-in of their input axes (_fan_in_d_model); then
-    the train steps again from the second init, with the loss of batch 0
-    before each step and after the last.  Held: that run's loss falls from
-    the first step to the last (the train path learns), on the stream and
-    on batch 0.  Not counted in the launches."""
+    measured: _grad_norms_by_init; then the train steps again from the
+    second init, with the loss of batch 0 before each step and after the
+    last.  Held: that run's loss falls from the first step to the last
+    (the train path learns), on the stream and on batch 0.  Not counted
+    in the launches."""
     from repro_torch.models.steps import init_train_state, make_train_step
     state = init_train_state(cfg, 0, opt, device=dev)
-    norms = {}
-    for init in ("reference", "fan_in_d_model"):
-        if init == "fan_in_d_model":
-            _fan_in_d_model(cfg, state["params"])
-        norms[init] = {d: _first_grad_norm(torch, cfg, state["params"],
-                                           batches[0], d)
-                       for d in WITNESS_DEPTHS}
+    witness = _grad_norms_by_init(torch, cfg, state["params"], batches[0])
     step_fn, _ = make_train_step(cfg, opt)
     losses, fixed = [], []
     for s in range(TRAIN_STEPS[cfg.name]):
@@ -3166,68 +3305,113 @@ def _init_witness(torch, dev, cfg, opt, batches) -> dict:
     check(losses[-1] < losses[0] and fixed[-1] < fixed[0],
           f"train {cfg.name}: from the fan-in-d_model init the loss did not "
           f"fall (stream {losses}, batch 0 {fixed})")
-    return {"depths": list(WITNESS_DEPTHS), "first_grad_norm": norms,
-            "fan_in_d_model_losses": losses,
+    return {**witness, "fan_in_d_model_losses": losses,
             "fan_in_d_model_batch0_losses": fixed}
 
 
+def _train_config(arch: str):
+    """``arch`` at its published widths, cut to TRAIN_DEPTH where one card
+    cannot hold a step of it whole."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if arch in TRAIN_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_DEPTH[arch])
+    return cfg
+
+
+def _train_opt(cfg, steps: int):
+    """The trainer's AdamWConfig(warmup_steps=5, total_steps=steps), with
+    bf16 moments where the config keeps them (cfg.opt_dtype)."""
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(warmup_steps=5, total_steps=steps,
+                       moment_dtype="bf16" if cfg.opt_dtype == "bf16"
+                       else "fp32")
+
+
 def phase_train_step(torch, dev, arch: str) -> tuple:
-    """``arch`` at full width and depth (bf16 weights, float32 moments) on
-    the card: TRAIN_STEPS[arch] train steps of launch/train.py's global
-    batch (16 x 256, the config's accum_steps) from seeded weights under
-    the trainer's AdamWConfig(warmup_steps=5, total_steps=steps); the
+    """``arch`` at full width (the depth of _train_config; bf16 weights,
+    the config's moments) on the card: TRAIN_STEPS[arch] train steps of
+    launch/train.py's global batch (16 x 256, the config's accum_steps;
+    the audio family's 1500 frames a sequence from _seeded_media) from
+    seeded weights under the trainer's AdamWConfig (_train_opt); the
     launch counts zeroed just before each step and read just after (the
     loss of batch 0 before each step and after the last, which tells the
     parameters' effect from the batches', runs outside them); the first
     step's loss against the same loss through the plain versions on the
     card; after the first step every parameter leaf's gradient (from its
-    first moment, _first_gradients) finite and not all zero; then one
-    profiled step.  Whether the loss fell is recorded, not held: from the
-    reference's init TRAIN_ARCH's first gradient norm is ~6e10 at full
-    depth, so with the clip at 1 Adam leaves nearly every element in
-    place; for TRAIN_ARCH, _init_witness measures that and holds that the
-    same steps from an init with the attention projections' fan-in fixed
-    do lower the loss."""
-    from repro_torch.configs import get_arch
+    first moment, _first_gradients) finite and not all zero; for MoE the
+    aux loss and the share of (token, expert) pairs each step drops at
+    capacity_factor (_moe_tap, on a no-grad forward of the step's
+    microbatches at the step's parameters, outside the step's time); then
+    one profiled step.  Whether the loss
+    fell is recorded, not held: from the reference's init TRAIN_ARCH's
+    first gradient norm is ~6e10 at full depth, so with the clip at 1
+    Adam leaves nearly every element in place; for TRAIN_ARCH,
+    _init_witness measures that and holds that the same steps from an
+    init with the attention projections' fan-in fixed do lower the
+    loss.  The archs of FAN_IN_FIXED train from that fixed draw: from the
+    reference's own init whisper-large-v3's first gradient norm overflows
+    float32 (its first microbatch's is ~1e27 at full depth in float64), so
+    the clip scales the gradient by 0; _grad_norms_by_init records the
+    first microbatch's norm by depth from both draws."""
     from repro_torch.data import DataConfig, SyntheticStream
     from repro_torch.kernels import ops
-    from repro_torch.models import param_count
+    from repro_torch.models import get_model, param_count
     from repro_torch.models.layers import ShardCtx
     from repro_torch.models.steps import (init_train_state, make_train_step,
                                           n_microbatches)
-    from repro_torch.optim import AdamWConfig
-    cfg = get_arch(arch)
+    cfg = _train_config(arch)
     steps = TRAIN_STEPS[arch]
-    opt = AdamWConfig(warmup_steps=5, total_steps=steps)
+    opt = _train_opt(cfg, steps)
     stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
                                         seq_len=TRAIN_SEQ,
                                         global_batch=TRAIN_BATCH, seed=0))
     batches = [torch.as_tensor(stream.batch(s, 0, 1)["tokens"], device=dev)
                for s in range(steps + 1)]
+    media = _seeded_media(torch, get_model(cfg), TRAIN_BATCH, dev)
+
+    def batch(s):
+        return {"tokens": batches[s]} if media is None else {
+            "tokens": batches[s], "media": media}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(cfg, 0, opt, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     state_gb = torch.cuda.memory_allocated() / 1e9
+    witness = None
+    if arch in FAN_IN_FIXED:      # on the first microbatch, for time
+        n = TRAIN_BATCH // n_microbatches(cfg, TRAIN_BATCH)
+        witness = _grad_norms_by_init(torch, cfg, state["params"],
+                                      batches[0][:n],
+                                      None if media is None else media[:n])
     plain_loss = _batch_loss(torch, cfg, state["params"], batches[0],
-                             ShardCtx(impl="torch"))
+                             ShardCtx(impl="torch"), media)
     step_fn, _ = make_train_step(cfg, opt)
-    losses, secs, norms, fixed = [], [], [], []
+    losses, secs, norms, fixed, aux, dropped = [], [], [], [], [], []
     launches = dict.fromkeys(ops.KERNELS, 0)
     for s in range(steps):
-        fixed.append(_batch_loss(torch, cfg, state["params"], batches[0]))
+        fixed.append(_batch_loss(torch, cfg, state["params"], batches[0],
+                                 media=media))
+        if cfg.family == "moe":     # the step's routing, outside its time
+            with _moe_tap(torch, cfg) as counts:
+                _batch_loss(torch, cfg, state["params"], batches[s],
+                            media=media)
+            dropped.append(sum(d for d, _ in counts)
+                           / sum(p for _, p in counts))
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state, m = step_fn(state, {"tokens": batches[s]})
+        state, m = step_fn(state, batch(s))
         losses.append(float(m["loss"]))
         secs.append(time.perf_counter() - t0)
         for k, n in ops.launch_counts().items():
             launches[k] += n
         norms.append(float(m["grad_norm"]))
+        aux.append(float(m["aux_loss"]))
         if s == 0:
             grads = _first_gradients(torch, state, norms[0], opt)
-    fixed.append(_batch_loss(torch, cfg, state["params"], batches[0]))
+    fixed.append(_batch_loss(torch, cfg, state["params"], batches[0],
+                             media=media))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = _train_launches(cfg, steps)
     check(launches == want, f"train {arch}: launches {launches}, want {want}")
@@ -3240,14 +3424,16 @@ def phase_train_step(torch, dev, arch: str) -> tuple:
     check(rel <= TRAIN_LOSS_RTOL, f"train {arch}: the first step's loss "
           f"{losses[0]} is {rel} from the plain versions' {plain_loss}")
     med = statistics.median(secs[1:] if len(secs) > 1 else secs)
-    record = {"phase": "train_step" if arch == TRAIN_ARCH
-              else "train_step_" + arch.split("-")[0],
-              "arch": arch, "params": param_count(cfg), "steps": steps,
+    record = {"phase": TRAIN_PHASE[arch],
+              "arch": arch, "n_layers": cfg.n_layers,
+              "params": param_count(cfg), "steps": steps,
               "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+              "media": None if media is None else list(media.shape),
               "accum_steps": n_microbatches(cfg, TRAIN_BATCH),
-              "remat": cfg.remat, "init_s": init_s,
+              "remat": cfg.remat, "moment_dtype": opt.moment_dtype,
+              "init_s": init_s,
               "state_gb": state_gb, "losses": losses, "grad_norms": norms,
-              "batch0_losses": fixed,
+              "aux_losses": aux, "batch0_losses": fixed,
               "loss_fell": losses[-1] < losses[0],
               "plain_first_loss": plain_loss,
               "first_loss_relative_gap": rel, "step_s": secs,
@@ -3256,15 +3442,148 @@ def phase_train_step(torch, dev, arch: str) -> tuple:
               "peak_memory_gb": peak_gb, "launches": launches,
               "first_gradients": grads,
               "profiled_step": _train_profile(
-                  torch, step_fn, state, {"tokens": batches[steps]})}
+                  torch, step_fn, state, batch(steps))}
+    if cfg.family == "moe":
+        record["moe"] = {"capacity_factor": cfg.moe.capacity_factor,
+                         "dropped_share_per_step": dropped}
+    if witness is not None:
+        record["init"] = "fan_in_d_model"
+        record["init_witness"] = witness
     del state
     torch.cuda.empty_cache()
     if arch == TRAIN_ARCH:
         record["init_witness"] = _init_witness(torch, dev, cfg, opt, batches)
     emit(record)
-    del batches
+    del batches, media
     torch.cuda.empty_cache()
     return launches, record
+
+
+def phase_train_vlm(torch, dev) -> dict:
+    """TRAIN_VLM smoke-reduced (4 layers: two periods of a self block and
+    a cross block), bf16 weights and moments, its gates opened to
+    CROSS_GATE, at the full config's accum_steps (one sequence a
+    microbatch), on the card: for each media dtype of TRAIN_VLM_MEDIA the
+    data stream's batches (16 x 256 tokens, 16 media tokens a sequence,
+    normal x 0.02) through make_train_step, 3 steps through the kernels
+    and 3 through the plain versions (ctx impl "torch") from the same
+    start.  Held: the
+    kernel run's launches equal the derived count (float32 media make
+    float32 keys, so the cross blocks run the float32 flash kernel on the
+    queries cast up), every loss within TRAIN_LOSS_RTOL of the plain run's,
+    every gradient leaf of the first step finite and not all zero.  The
+    model cannot be trained at full width on one card (one period is
+    5.3-6.4 B parameters, over 100 GB inside a step): train_kernels holds
+    its full-width attention shapes.  Returns the two kernel runs'
+    launches, summed."""
+    from repro_torch.configs import get_arch, smoke_reduce
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.steps import init_train_state, make_train_step
+    full = get_arch(TRAIN_VLM)
+    cfg = dataclasses.replace(smoke_reduce(full), dtype=torch.bfloat16,
+                              opt_dtype=full.opt_dtype,
+                              accum_steps=full.accum_steps)
+    steps = 3
+    opt = _train_opt(cfg, steps)
+    out = {}
+    stream = SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0,
+        media_shape=(cfg.cross_attn.n_media_tokens, cfg.d_model)))
+
+    def batch(s, media_dtype):
+        """The stream's batch s, its float32 media cast to media_dtype
+        (numpy has no bf16)."""
+        b = stream.batch(s, 0, 1)
+        b["media"] = torch.as_tensor(b["media"]).to(
+            getattr(torch, media_dtype))
+        return b
+    for media_dtype in TRAIN_VLM_MEDIA:
+        start = init_train_state(cfg, 0, opt, device=dev)
+        _open_gates(start["params"])
+        runs = {}
+        for impl in ("cuda", "torch"):
+            step_fn, _ = make_train_step(cfg, opt, ShardCtx(impl=impl))
+            state = start                  # a step updates nothing in place
+            ops.reset_launch_counts()
+            losses = []
+            for s in range(steps):
+                state, m = step_fn(state, batch(s, media_dtype))
+                losses.append(float(m["loss"]))
+                if s == 0:
+                    grads = _first_gradients(torch, state,
+                                             float(m["grad_norm"]), opt)
+            runs[impl] = {"losses": losses, "launches": ops.launch_counts(),
+                          "first_gradients": grads}
+        want = _train_launches(cfg, steps)
+        check(runs["cuda"]["launches"] == want, f"train_vlm {media_dtype}: "
+              f"launches {runs['cuda']['launches']}, want {want}")
+        check(not any(runs["torch"]["launches"].values()),
+              f"train_vlm {media_dtype}: the plain run launched a kernel")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(
+            runs["cuda"]["losses"], runs["torch"]["losses"])]
+        check(all(np.isfinite(runs["cuda"]["losses"]))
+              and max(gaps) <= TRAIN_LOSS_RTOL,
+              f"train_vlm {media_dtype}: losses {runs['cuda']['losses']} "
+              f"against the plain versions' {runs['torch']['losses']}")
+        g = runs["cuda"]["first_gradients"]
+        check(not g["not_finite"] and not g["all_zero"],
+              f"train_vlm {media_dtype}: gradients not finite in "
+              f"{g['not_finite']}, all zero in {g['all_zero']}")
+        out[media_dtype] = {**runs, "loss_relative_gaps": gaps}
+        del start, state
+    torch.cuda.empty_cache()
+    emit({"phase": "train_vlm", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "accum_steps": cfg.accum_steps, "global_batch": TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "gate": CROSS_GATE, "runs": out})
+    return {k: sum(out[d]["cuda"]["launches"][k] for d in TRAIN_VLM_MEDIA)
+            for k in out[TRAIN_VLM_MEDIA[0]]["cuda"]["launches"]}
+
+
+def phase_compression(torch, dev) -> dict:
+    """optim/compression.py on the card against the CPU: compress of a
+    seeded COMPRESS_NUMEL-element gradient (float32 and bf16) gives
+    torch.equal int8 values, float16 scales and residual on both devices;
+    decompress likewise; compressed_psum on one process (a world of one)
+    equals the dequantised gradient and the float32 residual of
+    compressing g in float32.  Times compress and
+    decompress by CUDA events (plain torch: the reference has no kernel
+    for them)."""
+    from repro_torch.optim import compression as cz
+    gen = torch.Generator().manual_seed(5)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        g = (3.0 * torch.randn(COMPRESS_NUMEL, generator=gen)).to(dtype)
+        g[:cz.BLOCK] = 0                     # an all-zero block
+        cpu = cz.compress(g)
+        card = cz.compress(g.to(dev))
+        for name, a, b in zip(("q", "scale", "resid"), cpu, card):
+            check(a.dtype == b.dtype and torch.equal(a, b.cpu()),
+                  f"compression {dname}: {name} differs on the card")
+        deq = cz.decompress(*card[:2], g.shape)
+        check(torch.equal(deq.cpu(), cz.decompress(*cpu[:2], g.shape)),
+              f"compression {dname}: decompress differs on the card")
+        # compressed_psum quantises g in float32 and keeps a float32
+        # residual
+        _, _, resid32 = cz.compress(g.to(dev).float())
+        summed, resid = cz.compressed_psum(g.to(dev))
+        check(torch.equal(summed, deq) and torch.equal(resid, resid32),
+              f"compression {dname}: compressed_psum on one process")
+        gd = g.to(dev)
+        rec[dname] = {
+            "numel": COMPRESS_NUMEL,
+            "compress_ms": _time_ms(torch, lambda: cz.compress(gd), n=10,
+                                    warmup=2),
+            "decompress_ms": _time_ms(torch, lambda: cz.decompress(
+                *card[:2], g.shape), n=10, warmup=2),
+            "max_abs_resid": float(card[2].float().abs().max())}
+        del g, cpu, card, deq, summed, resid, resid32, gd
+    torch.cuda.empty_cache()
+    emit({"phase": "compression", "held": "torch.equal to the CPU", **rec})
+    return rec
 
 
 def phase_train_elastic(torch, dev) -> tuple:
@@ -3358,10 +3677,11 @@ def _tensor_cores(build: dict, kernel: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every record to this file")
-    ap.add_argument("--timing", choices=("forest", "scan"),
+    ap.add_argument("--timing", choices=("forest", "scan", "serve"),
                     help="only time these kernels (forest_timing at "
-                    "TIMED_ROWS, or scan_timing) and print the timing as "
-                    "the last JSON line")
+                    "TIMED_ROWS, or scan_timing) or serving's decode "
+                    "(serve_timing) and print the timing as the last JSON "
+                    "line")
     ap.add_argument("--src", type=pathlib.Path, default=SRC,
                     help="with --timing: the src/ tree to import the port "
                     "from, e.g. an older version from git archive")
@@ -3381,6 +3701,8 @@ def main(argv=None) -> int:
         smi = phase_device(torch)
         if args.timing == "scan":
             timed = scan_timing(torch, dev)
+        elif args.timing == "serve":
+            timed = serve_timing(torch, dev)
         else:
             _, rf, rows = _forest_fixtures(torch, dev)
             timed = {B: forest_timing(torch, dev, rf, rows[:B])
@@ -3426,13 +3748,11 @@ def main(argv=None) -> int:
                                serve_async_broker)
     by_path["online_bench"] = phase_online_bench(torch, dev, smi)
     train_timing, train_fwd_err, train_err = phase_train_kernels(torch, dev)
-    trained_by = {arch: phase_train_step(torch, dev, arch)[0]
-                  for arch in TRAIN_ARCHS}
-    trained_by["elastic"] = phase_train_elastic(torch, dev)
-    train_paths = {"train_step": trained_by[TRAIN_ARCH],
-                   "train_step_rwkv6": trained_by["rwkv6-1.6b"],
-                   "train_step_zamba2": trained_by["zamba2-1.2b"],
-                   "train_elastic": trained_by["elastic"]}
+    train_paths = {TRAIN_PHASE[arch]: phase_train_step(torch, dev, arch)[0]
+                   for arch in TRAIN_ARCHS}
+    train_paths["train_vlm"] = phase_train_vlm(torch, dev)
+    train_paths["train_elastic"] = phase_train_elastic(torch, dev)
+    phase_compression(torch, dev)
 
     def train_fields(k):
         """The training paths' launches of kernel k and its train_kernels

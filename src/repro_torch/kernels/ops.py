@@ -15,10 +15,11 @@ training kernels run inside a ``torch.autograd.Function``: the forward is
 the same kernel (or, on the CPU, the same plain version) and the backward is
 plain torch, as the reference trains through ``ref.py`` on every impl.
 ``flash_attention``'s backward recomputes the plain version under autograd
-(what the reference's ``jax.checkpoint`` blocks do); the scans' forward runs
-chunk by chunk, one kernel launch per chunk from the previous chunk's final
-state (the kernels return only the final state, and the adjoint needs each
-chunk's first), and their backward is the chunked adjoint
+(what the reference's ``jax.checkpoint`` blocks do, here in one block);
+the scans' forward runs chunk by chunk, one kernel launch per chunk from
+the previous chunk's final state (the kernels return only the final
+state, and the adjoint needs each chunk's first), and their backward is
+the chunked adjoint
 (``ref.RWKV6Scan``, ``ref.SSDScan``).  Every forward launch counts, the
 recomputation of a rematerialised layer's forward included."""
 
@@ -137,7 +138,10 @@ def _under_grad(*ts) -> bool:
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is ``attend(q, k, v)`` (the kernel or the
     plain version) and whose backward differentiates the plain version,
-    recomputed from q, k and v."""
+    recomputed from q, k and v in one block (no query or key chunks): the
+    same function as the reference's 512 x 512 chunks, in a tenth of the
+    launches at whisper's 1500-frame encoder (360 MB of float32 scores a
+    call)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, attend):
@@ -147,19 +151,34 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
+        saved = ctx.saved_tensors           # unpacked once (remat)
         with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = ref.flash_attention_ref(*qkv, causal=ctx.causal,
-                                          window=ctx.window)
+            qkv = [t.detach().requires_grad_() for t in saved]
+            out = ref.flash_attention_ref(
+                *qkv, causal=ctx.causal, window=ctx.window,
+                q_chunk=qkv[0].shape[1], kv_chunk=qkv[1].shape[1])
             grads = torch.autograd.grad(out, qkv, gout)
         return (*grads, None, None, None)
 
 
+def _common_dtype(q, k, v):
+    """q, k and v in the dtype they promote to, and q's own dtype.  The
+    plain versions compute in float32 from any inputs and return q's
+    dtype; the kernels take one dtype, so bf16 queries on float32 keys
+    (float32 media on bf16 weights) run the float32 kernel on the queries
+    cast up, which is exact, and cast the output back."""
+    if q.dtype == k.dtype == v.dtype:
+        return q, k, v, q.dtype
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    return q.to(dt), k.to(dt), v.to(dt), q.dtype
+
+
 def _flash_kernel(q, k, v, *, causal, window):
     from repro_torch.kernels import attention as ak
+    q, k, v, out_dtype = _common_dtype(q, k, v)
     out = ak.flash_attention(q, k, v, causal=causal, window=window)
     _count("flash_attention")
-    return out
+    return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, impl=None):
@@ -179,9 +198,10 @@ def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
     if _resolve(impl, q, "q") == "torch":
         return ref.decode_attention_ref(q, k, v, kv_len, window=window)
     from repro_torch.kernels import attention as ak
+    q, k, v, out_dtype = _common_dtype(q, k, v)
     out = ak.decode_attention(q, k, v, kv_len, window=window)
     _count("decode_attention")
-    return out
+    return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
 def _rwkv6_kernel(r, k, v, w, u, state0):

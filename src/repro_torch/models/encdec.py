@@ -16,8 +16,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import NO_SHARD, ShardCtx
-from repro_torch.models.lm import (_need_media, _remat, stack_defs, unstack,
-                                   zeros_of)
+from repro_torch.models.lm import (_need_media, _remat, promote_cross_cache,
+                                   stack_defs, unstack, zeros_of)
 
 
 def _freqs(D: int, device) -> torch.Tensor:
@@ -156,15 +156,16 @@ def prefill(params, cfg: ArchConfig, tokens, *, media=None,
     max_len = max_len or S
     x = _embed(params, cfg, tokens, ctx)
     cache = init_cache(cfg, B, max_len, x.device)
+    promote_cross_cache(cache, enc_out, params["dec_blocks"]["xattn"]["wk"])
     for i, blk in enumerate(unstack(params["dec_blocks"])):
         h, (k, v) = L.attn_prefill(blk["attn"], L.norm_apply(blk["ln1"], x),
                                    positions=None, theta=0.0, ctx=ctx,
                                    cache_len=max_len, use_rope=False)
         cache["k"][i], cache["v"][i] = k, v
-        cache["xk"][i] = torch.einsum("bmd,dhk->bmhk", enc_out,
-                                      blk["xattn"]["wk"])
-        cache["xv"][i] = torch.einsum("bmd,dhk->bmhk", enc_out,
-                                      blk["xattn"]["wv"])
+        cache["xk"][i] = L.einsum("bmd,dhk->bmhk", enc_out,
+                                  blk["xattn"]["wk"])
+        cache["xv"][i] = L.einsum("bmd,dhk->bmhk", enc_out,
+                                  blk["xattn"]["wv"])
         x = _mlp(blk, _cross(blk, x + h, enc_out, ctx), ctx)
     x = L.norm_apply(params["final_norm"], x[:, -1:])
     return L.lm_head_apply(params["embed"], x, ctx)[:, 0], cache

@@ -15,6 +15,7 @@ outside any Pallas kernel); attention and the two scans go through
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +39,19 @@ class ShardCtx:
 
 
 NO_SHARD = ShardCtx()
+
+
+def einsum(eq: str, *operands):
+    """``torch.einsum`` with its operands promoted to their common dtype,
+    as ``jnp.einsum`` promotes them: float32 media (or an activation
+    computed from them) meeting bf16 weights is a float32 product, where
+    ``torch.einsum`` refuses mixed dtypes.  Operands of one dtype pass
+    unchanged."""
+    dt = operands[0].dtype
+    if all(o.dtype == dt for o in operands):
+        return torch.einsum(eq, *operands)
+    dt = functools.reduce(torch.promote_types, (o.dtype for o in operands))
+    return torch.einsum(eq, *(o.to(dt) for o in operands))
 
 
 # ---------------------------------------------------------------------------
@@ -113,15 +127,18 @@ def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int) -> dict:
 
 
 def _qkv(p, x, kv_x=None):
+    """q from x, k and v from kv_x (x when None), each promoted as
+    ``jnp.einsum`` does: float32 media give float32 keys and values on bf16
+    weights, and attention then computes in float32 (``kernels.ops``)."""
     kv_x = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", kv_x, p["wk"])
+    v = einsum("bsd,dhk->bshk", kv_x, p["wv"])
     return q, k, v
 
 
 def _out(p, o):
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 def attn_apply(p, x, *, positions=None, theta=10000.0, causal=True,
@@ -207,13 +224,13 @@ def mlp_defs(d_model: int, d_ff: int, kind: str = "swiglu") -> dict:
 def mlp_apply(p, x, ctx: ShardCtx = NO_SHARD):
     """SwiGLU when the block has a gate ``wg``, else GELU (tanh form, as
     ``jax.nn.gelu``'s default)."""
-    up = torch.einsum("bsd,df->bsf", x, p["wu"])
+    up = einsum("bsd,df->bsf", x, p["wu"])
     if "wg" in p:
-        h = F.silu(torch.einsum("bsd,df->bsf", x, p["wg"]).float())
+        h = F.silu(einsum("bsd,df->bsf", x, p["wg"]).float())
         h = h.to(x.dtype) * up
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+    return einsum("bsf,fd->bsd", h, p["wd"])
 
 
 # ---------------------------------------------------------------------------

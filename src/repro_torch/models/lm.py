@@ -425,9 +425,20 @@ def _ffn(cfg, blk, x, ctx, dropless=False):
 
 
 def _media_kv(blk, media):
-    """A cross block's keys and values of the media (B, M, Hkv, Dh)."""
-    return (torch.einsum("bmd,dhk->bmhk", media, blk["attn"]["wk"]),
-            torch.einsum("bmd,dhk->bmhk", media, blk["attn"]["wv"]))
+    """A cross block's keys and values of the media (B, M, Hkv, Dh), in the
+    dtype the media and the weights promote to."""
+    return (L.einsum("bmd,dhk->bmhk", media, blk["attn"]["wk"]),
+            L.einsum("bmd,dhk->bmhk", media, blk["attn"]["wv"]))
+
+
+def promote_cross_cache(cache: dict, kv_in, wk):
+    """Make the cross-attention cache entries ``xk``, ``xv`` hold the dtype
+    that keys computed from ``kv_in`` (the media, or the encoder's output)
+    and the weights ``wk`` come out in: float32 media on bf16 weights give
+    float32 keys, which the reference's prefill returns as they are."""
+    dt = torch.promote_types(kv_in.dtype, wk.dtype)
+    for name in ("xk", "xv"):
+        cache[name] = cache[name].to(dt)
 
 
 def prefill(params, cfg: ArchConfig, tokens, *, media=None,
@@ -451,6 +462,7 @@ def prefill(params, cfg: ArchConfig, tokens, *, media=None,
         _need_media(cfg, media)
         per = _vlm_layout(cfg)[1]
         selfs = unstack(params["self_blocks"])
+        promote_cross_cache(cache, media, params["cross_blocks"]["attn"]["wk"])
         for g, cross in enumerate(unstack(params["cross_blocks"])):
             for i in range(g * per, (g + 1) * per):
                 x = _prefill_attn(cfg, selfs[i], x, positions, cache, i,

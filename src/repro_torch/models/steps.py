@@ -16,7 +16,6 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import resolve_device
-from repro_torch.models import lm
 from repro_torch.models.layers import NO_SHARD, ShardCtx, lm_head_apply
 from repro_torch.models.registry import family_module, get_model
 from repro_torch.optim import adamw
@@ -58,10 +57,14 @@ def chunked_xent(hidden, embed_params, targets, ctx: ShardCtx = NO_SHARD,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def train_loss(cfg: ArchConfig, params, tokens, ctx: ShardCtx = NO_SHARD):
+def train_loss(cfg: ArchConfig, params, tokens, ctx: ShardCtx = NO_SHARD,
+               *, media=None):
     """The train step's loss on one microbatch: (next-token CE over
-    tokens[1:], aux loss), each 0-dim float32."""
-    hidden, aux = lm.apply(params, cfg, tokens, ctx=ctx, return_hidden=True)
+    tokens[1:], aux loss: the MoE layers' load-balance losses, else 0),
+    each 0-dim float32.  ``media`` (B, M, D): the vlm family's image
+    embeddings or the audio family's frames, None for the others."""
+    hidden, aux = family_module(cfg).apply(params, cfg, tokens, media=media,
+                                           ctx=ctx, return_hidden=True)
     loss = chunked_xent(hidden[:, :-1], params["embed"], tokens[:, 1:], ctx)
     return loss, aux
 
@@ -76,36 +79,31 @@ def n_microbatches(cfg: ArchConfig, batch: int,
     return A
 
 
-# the families whose train step is ported: the moe family's aux loss and the
-# media that vlm and audio batches carry are not held against the reference
-TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
-
-
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
                     ctx: ShardCtx = NO_SHARD):
     """Returns (train_step(state, batch) -> (state, metrics), opt_cfg).
 
-    state = {params, opt, step}; batch = {tokens (B, S)} (a tensor or an
-    array; it goes to the parameters' device).  Loss: next-token CE over
-    tokens[1:] (sequence-chunked, ``train_loss``).  cfg.accum_steps > 1
-    splits the global batch into microbatches (``n_microbatches``) with
-    gradient accumulation: each microbatch's gradient cast to float32, added
-    to the accumulator and cast to its dtype (float32, or bf16 when
-    cfg.opt_dtype is "bf16"), the sum divided by the count in float32."""
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training of the {cfg.family} family is not ported "
-            f"yet (ported: {', '.join(TRAINED_FAMILIES)})")
+    state = {params, opt, step}; batch = {tokens (B, S) [, media (B, M,
+    D)]} (tensors or arrays; they go to the parameters' device, the media
+    in their own dtype).  Loss: next-token CE over tokens[1:]
+    (sequence-chunked, ``train_loss``) plus the MoE aux loss.
+    cfg.accum_steps > 1 splits every batch key into microbatches
+    (``n_microbatches``) with gradient accumulation: each microbatch's
+    gradient cast to float32, added to the accumulator and cast to its
+    dtype (float32, or bf16 when cfg.opt_dtype is "bf16"), the sum divided
+    by the count in float32."""
+    get_model(cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         moment_dtype="bf16" if cfg.opt_dtype == "bf16" else "fp32")
     acc_dtype = torch.bfloat16 if cfg.opt_dtype == "bf16" else torch.float32
 
-    def grad_fn(params, tokens):
+    def grad_fn(params, batch):
         """(loss, aux, gradients in sorted-key leaf order)."""
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, aux = train_loss(cfg, tree_unflatten(params, leaves),
-                                   tokens, ctx)
+                                   batch["tokens"], ctx,
+                                   media=batch.get("media"))
             grads = torch.autograd.grad(loss + aux, leaves,
                                         allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -115,18 +113,23 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
     def train_step(state, batch):
         params = state["params"]
         dev = tree_leaves(params)[0].device
-        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-        B = tokens.shape[0]
+        batch = {k: torch.as_tensor(batch[k], device=dev)
+                 for k in ("tokens", "media") if batch.get(k) is not None}
+        batch["tokens"] = batch["tokens"].long()
+        B = batch["tokens"].shape[0]
         A = n_microbatches(cfg, B, ctx)
         if A == 1:
-            loss, aux, grads = grad_fn(params, tokens)
+            loss, aux, grads = grad_fn(params, batch)
         else:
             acc = [torch.zeros(p.shape, dtype=acc_dtype, device=dev)
                    for p in tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             aux = torch.zeros((), dtype=torch.float32, device=dev)
-            for mb in tokens.reshape(A, B // A, -1):
-                lm_, am, g = grad_fn(params, mb)
+            mbs = {k: v.reshape(A, B // A, *v.shape[1:])
+                   for k, v in batch.items()}
+            for i in range(A):
+                lm_, am, g = grad_fn(params, {k: v[i]
+                                              for k, v in mbs.items()})
                 acc = [(ga.float() + gi.float()).to(acc_dtype)
                        for ga, gi in zip(acc, g)]
                 del g

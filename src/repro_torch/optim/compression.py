@@ -1,0 +1,74 @@
+"""Int8 error-feedback gradient compression for cross-pod reduction.
+
+The port's copy of ``repro/optim/compression.py``.  At scale the all-reduce
+of bf16 gradients between pods is the bottleneck; int8 values with a
+float16 scale per block of BLOCK elements halve it, and the error-feedback
+residual keeps the accumulated quantisation error bounded, so convergence
+is unaffected (Seide et al.).
+
+Usage in a data-parallel gradient sync over a ``torch.distributed`` group:
+
+    g_sum, resid = compressed_psum(g, group, resid)
+
+or locally as a quantise / dequantise pair, ``compress`` and
+``decompress``.  Plain torch on the tensors' device, in the reference's
+order of operations: the scale rounded to float16 before quantising, round
+half to even, the clip to +-127."""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+BLOCK = 256
+
+
+def _pad_to_block(x):
+    n = x.numel()
+    flat = x.reshape(-1)
+    pad = (-n) % BLOCK
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat, n
+
+
+def compress(g: torch.Tensor):
+    """g (any shape, float) -> (int8 values (n_blocks, BLOCK), per-block
+    float16 scales (n_blocks,), residual in g's dtype).  residual = g -
+    dequantised(g): feed it back into the next step's gradient."""
+    flat, n = _pad_to_block(g.float())
+    blocks = flat.reshape(-1, BLOCK)
+    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    # quantise with the same float16-rounded scale the receiver will use, so
+    # the residual is exact with respect to what reconstructs on the other
+    # side
+    scale16 = torch.clamp(scale.to(torch.float16).float(), min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale16), -127, 127).to(torch.int8)
+    deq = (q.float() * scale16).reshape(-1)[:n].reshape(g.shape)
+    resid = g.float() - deq
+    return q, scale16.to(torch.float16)[:, 0], resid.to(g.dtype)
+
+
+def decompress(q: torch.Tensor, scale: torch.Tensor, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    deq = q.float() * scale.float()[:, None]
+    n = 1
+    for d in shape:
+        n *= d
+    return deq.reshape(-1)[:n].reshape(tuple(shape)).to(dtype)
+
+
+def compressed_psum(g: torch.Tensor, group=None, resid=None):
+    """Error-feedback int8 sum of ``g`` over the processes of ``group``
+    (``torch.distributed``; the default group when None).  Returns (the
+    summed gradient float32, the new residual float32).  Without an
+    initialised process group the sum is over a world of one: the
+    dequantised gradient itself.  The dequantised form is what is summed;
+    on a real fabric the int8 values and scales are what would move."""
+    gin = g.float() + (resid.float() if resid is not None else 0.0)
+    q, scale, new_resid = compress(gin)
+    deq = decompress(q, scale, g.shape)
+    if dist.is_available() and dist.is_initialized():
+        dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
+    return deq, new_resid

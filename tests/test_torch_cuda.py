@@ -660,6 +660,10 @@ def test_telemetry_on_the_card_equals_the_cpu(dev, tmp_path):
 TRAIN_CASES = {
     "flash": (2, 64, 64, 4, 2, 64, True, 0),
     "flash_window": (2, 100, 100, 4, 4, 32, True, 16),
+    # non-causal cross-attention to more keys than queries (the vlm's and
+    # whisper's decoder), and a whisper-like encoder (S = Skv, D=64)
+    "flash_cross": (2, 64, 160, 8, 2, 64, False, 0),
+    "flash_encoder": (2, 150, 150, 4, 4, 64, False, 0),
     "rwkv6_300": (2, 300, 2, 64),
     "rwkv6_256": (1, 256, 4, 32),
     "mamba2_300": (2, 300, 2, 16, 16),
@@ -804,3 +808,112 @@ def test_bf16_checkpoint_round_trip_on_the_card(dev, tmp_path):
     got = mgr.restore(1, tree)
     for a, b in zip(tree_leaves(got), tree_leaves(tree)):
         assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# the moe, vlm and audio families' train step; float32 media on bf16
+# weights; optim/compression.py
+# ---------------------------------------------------------------------------
+
+FAMILY_TRAIN = ("deepseek-moe-16b", "llama-3.2-vision-90b",
+                "whisper-large-v3")
+
+
+def _family_step(arch, dev, dtype=torch.float32, media_dtype=None,
+                 accum=2):
+    """One train step of ``arch``'s smoke config (the vlm's gates opened
+    to 0.5; seeded media for vlm and audio) on the card through the
+    kernels and on the CPU through the plain versions, from the same
+    weights: (card metrics, card state, CPU metrics, CPU state, flash
+    launches of the card step, the config)."""
+    import dataclasses
+    from repro_torch.configs import get_arch, smoke_reduce
+    from repro_torch.models import get_model
+    from repro_torch.models.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel.axes import tree_map
+    cfg = dataclasses.replace(smoke_reduce(get_arch(arch)),
+                              accum_steps=accum, dtype=dtype)
+    opt = AdamWConfig(warmup_steps=1, total_steps=4)
+    cpu_state = init_train_state(cfg, 0, opt, device="cpu")
+    if "cross_blocks" in cpu_state["params"]:
+        for gate in ("gate_attn", "gate_mlp"):
+            cpu_state["params"]["cross_blocks"][gate].fill_(0.5)
+    dev_state = tree_map(lambda t: t.to(dev), cpu_state)
+    gen = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32),
+                                     generator=gen)}
+    ms = get_model(cfg).media_struct(4)
+    if ms is not None:
+        batch["media"] = (0.02 * torch.randn(ms.shape, generator=gen)).to(
+            media_dtype or dtype)
+    step, _ = make_train_step(cfg, opt)
+    ops.reset_launch_counts()
+    dev_new, dm = step(dev_state, batch)
+    launches = ops.launch_counts()["flash_attention"]
+    cpu_new, cm = step(cpu_state, batch)
+    return dm, dev_new, cm, cpu_new, launches, cfg
+
+
+def _flash_per_forward(cfg):
+    if cfg.family == "audio":
+        return cfg.enc_dec.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", FAMILY_TRAIN)
+def test_family_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """test_smoke_train_step_on_the_card_matches_the_cpu for the moe, vlm
+    and audio families (float32, accum 2, TF32 off): losses and aux losses
+    within 1e-4, grad norms within 1e-3, every parameter within 2 lr,
+    exactly one flash launch per attention per microbatch (the smoke
+    configs do not rematerialise)."""
+    from repro_torch.parallel.axes import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dm, dev_new, cm, cpu_new, launches, cfg = _family_step(arch, dev)
+    assert launches == _flash_per_forward(cfg) * 2
+    for key in ("loss", "aux_loss"):
+        assert abs(float(dm[key]) - float(cm[key])) <= 1e-4 * max(
+            abs(float(cm[key])), 1e-6)
+    assert abs(float(dm["grad_norm"]) - float(cm["grad_norm"])) <= 1e-3 * \
+        float(cm["grad_norm"])
+    lr = float(cm["lr"])
+    for a, b in zip(tree_leaves(dev_new["params"]),
+                    tree_leaves(cpu_new["params"])):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 2 * lr + 1e-6
+
+
+@pytest.mark.parametrize("arch", FAMILY_TRAIN[1:])
+def test_float32_media_on_bf16_weights_on_the_card(dev, arch):
+    """A bf16 smoke vlm / whisper step with float32 media on the card: the
+    float32 keys of the media run the float32 flash kernel (the queries
+    cast up), one launch per attention per microbatch; the loss within
+    chip_smoke's TRAIN_LOSS_RTOL (5e-3) of the CPU's plain step, every
+    parameter's new value finite."""
+    from repro_torch.parallel.axes import tree_leaves
+    dm, dev_new, cm, _, launches, cfg = _family_step(
+        arch, dev, dtype=torch.bfloat16, media_dtype=torch.float32)
+    assert launches == _flash_per_forward(cfg) * 2
+    assert abs(float(dm["loss"]) - float(cm["loss"])) <= 5e-3 * float(
+        cm["loss"])
+    assert all(bool(torch.isfinite(p).all())
+               for p in tree_leaves(dev_new["params"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compression_on_the_card_equals_the_cpu(dev, dtype):
+    """compress / decompress / compressed_psum (one process) on the card
+    torch.equal to the CPU on the same seeded input (ragged last block,
+    an all-zero block)."""
+    from repro_torch.optim import compression as cz
+    g = (3.0 * torch.randn(5 * cz.BLOCK + 41,
+                           generator=torch.Generator().manual_seed(6))
+         ).to(dtype)
+    g[cz.BLOCK:2 * cz.BLOCK] = 0
+    cpu, card = cz.compress(g), cz.compress(g.to(dev))
+    for a, b in zip(cpu, card):
+        assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b.cpu())
+    deq = cz.decompress(*card[:2], g.shape)
+    assert torch.equal(deq.cpu(), cz.decompress(*cpu[:2], g.shape))
+    summed, resid = cz.compressed_psum(g.to(dev))
+    assert torch.equal(summed, deq)     # quantised in float32: the same q
+    assert torch.equal(resid, cz.compress(g.to(dev).float())[2])

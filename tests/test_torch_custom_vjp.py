@@ -165,3 +165,27 @@ def test_flash_attention_function_matches_plain_autograd_and_reference(
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_recomputes_in_one_block(causal):
+    """The Function's backward recomputes the plain version in one block:
+    its gradients equal autograd through the plain version at
+    q_chunk = S and kv_chunk = Skv, and agree within 1e-5 with the plain
+    version's default 512-row chunks (S = 600 and Skv = 700 span two
+    chunks of each)."""
+    rs = np.random.RandomState(6)
+    q = rs.randn(1, 600, 4, 8).astype(np.float32)
+    k, v = (rs.randn(1, 700, 2, 8).astype(np.float32) for _ in range(2))
+    cot = torch.tensor(rs.randn(1, 600, 4, 8).astype(np.float32))
+
+    def grads(fn, **kw):
+        leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+        out = fn(*leaves, causal=causal, **kw)
+        return torch.autograd.grad((out * cot).sum(), leaves)
+    got = grads(ops.flash_attention)
+    whole = grads(ref.flash_attention_ref, q_chunk=600, kv_chunk=700)
+    chunked = grads(ref.flash_attention_ref)
+    for a, b, c in zip(got, whole, chunked):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)

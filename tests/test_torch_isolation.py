@@ -163,6 +163,57 @@ def test_trains_with_jax_unimportable(tmp_path):
     assert "[train] committed: 2" in lines
 
 
+_NO_JAX_FAMILIES = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import dataclasses
+import numpy as np
+import torch
+from repro_torch.configs import get_arch, smoke_reduce
+from repro_torch.data import DataConfig, SyntheticStream
+from repro_torch.models.steps import init_train_state, make_train_step
+from repro_torch.optim import AdamWConfig
+from repro_torch.optim.compression import compressed_psum
+for arch in ("deepseek-moe-16b", "llama-3.2-vision-90b", "whisper-large-v3"):
+    cfg = dataclasses.replace(smoke_reduce(get_arch(arch)), accum_steps=2,
+                              dtype=torch.bfloat16)
+    media = None
+    if cfg.family == "vlm":
+        media = (cfg.cross_attn.n_media_tokens, cfg.d_model)
+    elif cfg.family == "audio":
+        media = (cfg.enc_dec.n_frames, cfg.d_model)
+    stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=16, global_batch=4,
+                                        media_shape=media))
+    opt = AdamWConfig(warmup_steps=1, total_steps=2)
+    step, _ = make_train_step(cfg, opt)
+    state, m = step(init_train_state(cfg, 0, opt, device="cpu"),
+                    stream.batch(0, 0, 1))
+    assert np.isfinite(float(m["loss"])), arch
+    g = state["opt"]["m"]["embed"]["embedding"]
+    summed, resid = compressed_psum(g)
+    assert summed.shape == g.shape and resid.dtype == torch.float32
+    print(arch, float(m["loss"]))
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+"""
+
+
+def test_trains_the_media_and_moe_families_with_jax_unimportable():
+    """A bf16 train step of each smoke family that serves media or experts
+    (float32 media from the data stream), and the compressed gradient
+    sum, without JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_FAMILIES], capture_output=True,
+        text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    assert [ln.split()[0] for ln in proc.stdout.splitlines()] == [
+        "deepseek-moe-16b", "llama-3.2-vision-90b", "whisper-large-v3"]
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -540,11 +540,31 @@ def test_serve_main_on_cpu_zoo(arch_id, capsys):
 
 
 @pytest.mark.parametrize("arch_id", ZOO)
-def test_train_step_refuses_the_families_it_does_not_train(arch_id):
-    """The moe, vlm and audio families serve but do not train yet (the
-    train step takes no media and its MoE aux loss is not held against the
-    reference): make_train_step says so instead of training them."""
-    from repro_torch.models.steps import make_train_step
+def test_train_step_trains_the_zoo(arch_id):
+    """make_train_step trains the moe, vlm and audio families too: its
+    loss and aux loss are train_loss's at the state it was given (seeded
+    media for vlm and audio), and the step moves the parameters.  Parity
+    with the reference's step is tests/test_torch_train.py's."""
+    from repro_torch.models.steps import (init_train_state, make_train_step,
+                                          train_loss)
+    from repro_torch.optim import AdamWConfig
     cfg = tconfigs.smoke_reduce(tconfigs.get_arch(arch_id))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(cfg)
+    opt = AdamWConfig(warmup_steps=1, total_steps=2)
+    state = init_train_state(cfg, 0, opt, device=CPU)
+    gen = torch.Generator().manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    ms = get_model(cfg).media_struct(2)
+    media = None if ms is None else 0.02 * torch.randn(ms.shape,
+                                                       generator=gen)
+    batch = {"tokens": tokens} if media is None else {"tokens": tokens,
+                                                      "media": media}
+    new, m = make_train_step(cfg, opt)[0](state, batch)
+    with torch.no_grad():
+        loss, aux = train_loss(cfg, state["params"], tokens, media=media)
+    assert float(m["loss"]) == float(loss)
+    assert float(m["aux_loss"]) == float(aux)
+    assert (float(aux) > 0) == (cfg.family == "moe")
+    assert int(new["step"]) == 1
+    emb = (new["params"]["embed"]["embedding"],
+           state["params"]["embed"]["embedding"])
+    assert not torch.equal(*emb)

@@ -13,7 +13,17 @@ counters (the chaos draws, ATLAS's GLM decisions, checkpoints, rollbacks)
 and the losses within LOSS_RTOL (float32 sums in another order; at count 1
 Adam moves a parameter by about lr x sign(g), so a gradient within rounding
 of zero can move it the other way, and the runs part by that much).
-(h) ``launch.train.main`` prints the reference's result keys."""
+(h) ``launch.train.main`` prints the reference's result keys.
+(i) The moe, vlm and audio families (smoke configs): the ElasticTrainer
+with ``DataConfig(media_shape=...)`` for whisper and the vlm (its gates
+opened to 0.5 in both packages' states), under chaos, against the
+reference's trainer as in (g), losses within LOSS_RTOL; and the train
+states of deepseek-moe (bf16 parameters and moments, as its config keeps
+them), the vlm (stacked cross blocks) and whisper (encoder and decoder
+stacks): a port round trip exact, the same state saved by both packages
+in equal shard bytes and digests, the reference's checkpoint restored in
+the port exactly, and a float32 port checkpoint restored in the reference
+exactly (the reference cannot restore bf16 leaves, ROADMAP section 3)."""
 
 import contextlib
 import dataclasses
@@ -279,3 +289,92 @@ def test_checkpoint_digests_are_array_digests(dtype):
               torch.zeros(0, 2, dtype=dtype), torch.tensor(7).to(dtype)):
         arr, _ = _host(t)
         assert _digest(arr) == array_digest(arr)
+
+
+# ---------------------------------------------------------------------------
+# (i) the moe, vlm and audio families
+# ---------------------------------------------------------------------------
+
+MEDIA_RUN = dict(n_hosts=4, steps=6, fail_rate=0.06, degrade_rate=0.15,
+                 checkpoint_every=3, seed=1)
+
+
+def _open_gates(params, full):
+    cross = params.get("cross_blocks")
+    if cross is not None:
+        for gate in ("gate_attn", "gate_mlp"):
+            cross[gate] = full(cross[gate], 0.5)
+    return params
+
+
+def _media_data(arch, make):
+    M = arch.cross_attn.n_media_tokens if arch.family == "vlm" \
+        else arch.enc_dec.n_frames
+    return make(vocab_size=arch.vocab_size, seq_len=16, global_batch=8,
+                media_shape=(M, arch.d_model))
+
+
+@pytest.mark.parametrize("arch_id", ["whisper-large-v3",
+                                     "llama-3.2-vision-90b"])
+def test_elastic_trainer_with_media_matches_reference(tmp_path, arch_id):
+    jarch = jsmoke(jget_arch(arch_id))
+    ref = JElasticTrainer(jarch, JRuntimeConfig(**MEDIA_RUN), tmp_path / "r",
+                          data_cfg=_media_data(jarch, JDataConfig))
+    start = jax.tree.map(np.asarray, ref.state)
+    _open_gates(start["params"], np.full_like)
+    ref.state = jax.tree.map(jnp.asarray, start)
+    want = ref.run()
+    arch = smoke_reduce(get_arch(arch_id))
+    port = ElasticTrainer(arch, RuntimeConfig(**MEDIA_RUN), tmp_path / "p",
+                          data_cfg=_media_data(arch, DataConfig), device=CPU)
+    port.state = train_state_from_jax(start, device=CPU)
+    got = port.run()
+    assert {k: got[k] for k in COUNTERS} == {k: want[k] for k in COUNTERS}
+    assert got["committed"] >= MEDIA_RUN["steps"]
+    np.testing.assert_allclose(port.losses, ref.losses, rtol=LOSS_RTOL)
+
+
+FAMILY_STATES = {"deepseek-moe-16b": "bf16", "llama-3.2-vision-90b": "fp32",
+                 "whisper-large-v3": "fp32"}
+
+
+@pytest.mark.parametrize("arch_id", list(FAMILY_STATES))
+def test_family_train_state_checkpoints_cross_packages(tmp_path, arch_id):
+    from repro.models.steps import init_train_state as jinit
+    from repro.optim import AdamWConfig as JAdamW
+    bf16 = FAMILY_STATES[arch_id] == "bf16"
+    jarch = jsmoke(jget_arch(arch_id))
+    if bf16:
+        jarch = dataclasses.replace(jarch, dtype=jnp.bfloat16)
+    jstate = jinit(jarch, jax.random.PRNGKey(0), JAdamW(
+        moment_dtype=FAMILY_STATES[arch_id]))
+    state = train_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                 device=CPU)
+    leaves = tree_leaves(state)
+    assert any(t.dtype == torch.bfloat16 for t in leaves) == bf16
+    # the port's round trip
+    mgr = CheckpointManager(tmp_path / "port", async_write=False)
+    mgr.save(3, state)
+    assert _equal(mgr.restore(3, state), state)
+    # the same state saved by the reference: equal bytes and digests
+    JCheckpointManager(tmp_path / "ref", async_write=False).save(3, jstate)
+    step = "step_000000003"
+    shards = sorted(p.name for p in (tmp_path / "ref" / step).glob("*.npz"))
+    assert shards == sorted(
+        p.name for p in (tmp_path / "port" / step).glob("*.npz"))
+    for name in shards:
+        a = zipfile.ZipFile(tmp_path / "ref" / step / name)
+        b = zipfile.ZipFile(tmp_path / "port" / step / name)
+        assert a.namelist() == b.namelist()
+        assert all(a.read(m) == b.read(m) for m in a.namelist()), name
+    metas = [json.loads((tmp_path / d / step / "meta.json").read_text())
+             for d in ("ref", "port")]
+    for key in ("n_leaves", "digests", "shapes", "dtypes"):
+        assert metas[0][key] == metas[1][key], key
+    # the reference's checkpoint in the port; the port's in the reference
+    assert _equal(CheckpointManager(tmp_path / "ref").restore(3, state),
+                  state)
+    if not bf16:
+        got = JCheckpointManager(tmp_path / "port").restore(3, jstate)
+        for a, b in zip(jax.tree.leaves(got), leaves):
+            assert np.array_equal(np.asarray(a), b.numpy())
