@@ -215,6 +215,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
            compressed_psum (one process) on the card torch.equal to the
            CPU, float32 and bf16
 
+  dryrun   launch/dryrun.py's grid on pod16x16 (40 cells), traced on
+           meta in DRYRUN_JOBS spawned processes while the training phases
+           run: no cell in error, skipped exactly the long_500k cells of the
+           full-attention archs; each cell's trace_s, FLOPs, temporaries and
+           kernel refusals
+  dryrun_cells
+           DRYRUN_CELLS on one card (mesh h100x1), each dry-run first (its
+           global batch cut to a power of two where the whole step does not
+           fit 80 GB), then run for real through the kernels under the same
+           counting mode: launches equal to ops.launch_counts() and to the
+           dry run's, the arguments' bytes equal to the dry run's, FLOPs
+           equal on meta and on the card, the predicted peak (arguments +
+           temporaries) within DRYRUN_PEAK_TOL of max_memory_allocated,
+           every output finite; that run's step s and TFLOP/s (the
+           counting mode's host work included)
+
 Earlier lines are JSON records; then the kernels line, the nvidia-smi line,
 and last {"ok": true, "device": {...}}.
 
@@ -225,7 +241,8 @@ kernels (scan_timing) or serving's prefill and decode steps
 (serve_timing), importing the port from DIR (default: this
 checkout's src/), and prints the timing as its last JSON line: run it on
 an older tree from git archive and on this one in turns to compare two
-versions on one card.  Without a CUDA device, or without
+versions on one card (--timing forest reads its bounds from DIR's
+launch/cost.py, which trees from the dry-run slice on have).  Without a CUDA device, or without
 the repository's src/ beside this file, it exits non-zero and prints no
 result.  Imports nothing of JAX or of the JAX package."""
 
@@ -246,11 +263,6 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
-PEAK_BF16_S = 989e12
 TIMED_ROWS = (1, 13, 4096)
 N_TIMED = 100
 FLEET = 1000
@@ -367,11 +379,6 @@ SSD_CASES = {"main": (4, 1024, 64, 64, 64), "k16": (1, 64, 2, 16, 16),
              "s1_strong": (4, 1, 64, 64, 64)}
 SCAN_TOL = {"float32": 5e-3, "bfloat16": 5e-2}   # tests/test_kernels.py:105-110
 STATE_TOL = 1e-3                                 # the float32 final state
-# float32 operations per state element per step, an FMA counted as 2.
-# rwkv6: k v, u (k v), S + u k v, r * (...) and its sum, w S, + k v;
-# mamba2 (stepwise): exp(dt A) S, (dt x) B, the sum, S C and its sum
-RWKV_OPS_PER_ELEMENT = 7
-SSD_OPS_PER_ELEMENT = 5
 SCAN_CUT = 77            # where a sequence is cut to carry the state
 
 # the ATLAS phases after serving: the paper's predictor study and §5 sweep
@@ -486,6 +493,18 @@ WITNESS_DEPTHS = {"stablelm-1.6b": (2, 4, 8, 16, 24),
 # full depth, whose square overflows float32 in AdamW's clip
 # train_elastic: launch/train.py's flags for the phase
 ELASTIC = dict(steps=8, checkpoint_every=8)
+# dryrun: the grid of launch/dryrun.py on pod16x16, DRYRUN_JOBS cells at a
+# time in spawned processes, traced while the training phases run;
+# dryrun_cells: these cells on one card (h100x1), each after its own dry
+# run, whole where that run's arguments plus temporaries fit the card's 80
+# GB, else at the largest power-of-two global batch that fits
+DRYRUN_JOBS = 2
+DRYRUN_CELLS = (("zamba2-1.2b", "long_500k"), ("zamba2-1.2b", "decode_32k"),
+                ("rwkv6-1.6b", "prefill_32k"), ("stablelm-1.6b", "train_4k"))
+# the dry run's peak (arguments + temporaries) against the card's
+# max_memory_allocated: the allocator rounds each block up, the cuBLAS
+# workspace and the autograd engine's buffers are not counted
+DRYRUN_PEAK_TOL = 0.25
 
 RECORDS: list = []
 _T0 = time.perf_counter()
@@ -593,20 +612,6 @@ def _time_ms(torch, fn, n=N_TIMED, warmup=10) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
-
-
-def _bound(rows, F, T, D, M, trees_per_row):
-    """Least time for the work: each input byte read once, each output byte
-    written once, over the memory rate; compares + adds + one division
-    per row over the fp32 rate.  The larger bounds it."""
-    L = 1 << D
-    nbytes = 4 * (rows * F + M * T * D * 2 + M * T * L + rows)
-    if M > 1:
-        nbytes += 4 * (M + 1 + M)               # segment offsets, tree counts
-    ops = trees_per_row * (D + 1) + rows
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _forest_fixtures(torch, dev):
@@ -832,6 +837,7 @@ def forest_timing(torch, dev, rf, rows) -> dict:
     call (rows from the host to the card and back) against the numpy mirror
     on the host, by perf_counter.  Emits one record and returns
     {kernel: record}."""
+    from repro_torch.launch import cost
     from repro_torch.cluster.telemetry import N_FEATURES
     from repro_torch.kernels import ops
     from repro_torch.ml import forest
@@ -847,7 +853,8 @@ def forest_timing(torch, dev, rf, rows) -> dict:
     for kernel, args, fn, M in (
             ("forest_infer", sargs, ops.forest_infer, 1),
             ("forest_infer_grouped", gargs, ops.forest_infer_grouped, 2)):
-        bms, by = _bound(B, N_FEATURES, 24, 5, M, 24 * B)
+        bms, by = cost.bound_ms(*cost.forest_work(B, N_FEATURES, 24, 5, M,
+                                                  24 * B))
         t[kernel] = {
             "ms": _time_ms(torch, lambda: fn(*args, impl="cuda")),
             "device_ms": _kernel_device_ms(
@@ -1161,37 +1168,6 @@ def phase_trace(torch, dev, cfg, trained):
 
 # ---------------------------------------------------------------- serving
 
-def _flash_work(B, S, Skv, H, Hkv, D, causal, window, itemsize):
-    """(bytes, FLOP) the flash function needs on these inputs: q, k, v read
-    once and the output written once; 4*D FLOP (QK and PV) per visible
-    (query, key) pair per head."""
-    qpos = np.arange(S)[:, None] + (Skv - S)
-    kpos = np.arange(Skv)[None, :]
-    vis = np.ones((S, Skv), bool)
-    if causal:
-        vis &= kpos <= qpos
-    if window:
-        vis &= kpos > qpos - window
-    nbytes = itemsize * (2 * B * S * H * D + 2 * B * Skv * Hkv * D)
-    return nbytes, 4.0 * D * H * B * int(vis.sum())
-
-
-def _decode_work(B, Smax, H, Hkv, D, window, lens, itemsize):
-    """(bytes, FLOP) of one decode call: the live K/V rows, q, the output
-    and kv_len; 4*D FLOP per live key per query head."""
-    live = sum(min(n, Smax) - (max(0, n - window) if window else 0)
-               for n in lens)
-    nbytes = itemsize * (2 * live * Hkv * D + 2 * B * H * D) + 4 * B
-    return nbytes, 4.0 * D * H * live
-
-
-def _bound_ms(nbytes, flop, dtype_name):
-    peak = PEAK_BF16_S if dtype_name == "bfloat16" else PEAK_FP32_S
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flop / peak
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def _kernel_device_ms(torch, fn, kind: str, n=DEVICE_TIMED,
                       tries=3) -> float | None:
     """The mean device time of the kernels whose name contains ``kind``
@@ -1223,6 +1199,7 @@ def phase_attn_kernels(torch, dev):
     plain version and scaled_dot_product_attention on the same work (where
     it computes the same function: no window that hides a key); the
     kernel's own device time under torch.profiler."""
+    from repro_torch.launch import cost
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1271,9 +1248,8 @@ def phase_attn_kernels(torch, dev):
             # where S == Skv or nothing is masked
             same = (not window or window >= Skv) and (S == Skv or not causal)
             rec["library_ms"] = sdpa(q, k, v, causal) if same else None
-            rec["bound_ms"], rec["bound_by"] = _bound_ms(
-                *_flash_work(B, S, Skv, H, Hkv, D, causal, window,
-                             q.element_size()), dname)
+            rec["bound_ms"], rec["bound_by"] = cost.bound_ms(
+                *cost.flash_work(B, S, Skv, H, Hkv, D, causal, window, dname))
             timing["flash_attention"][f"{case}/{dname}"] = rec
             del q, k, v, got, plain
         for case, (B, Smax, H, Hkv, D, window, lens) in DECODE_CASES.items():
@@ -1299,9 +1275,8 @@ def phase_attn_kernels(torch, dev):
             same = (not window or window >= Smax) and all(
                 n == Smax for n in lens)
             rec["library_ms"] = sdpa(q, k, v, False) if same else None
-            rec["bound_ms"], rec["bound_by"] = _bound_ms(
-                *_decode_work(B, Smax, H, Hkv, D, window, lens,
-                              q.element_size()), dname)
+            rec["bound_ms"], rec["bound_by"] = cost.bound_ms(
+                *cost.decode_work(B, Smax, H, Hkv, D, window, lens, dname))
             timing["decode_attention"][f"{case}/{dname}"] = rec
     torch.cuda.synchronize()
     emit({"phase": "attn_kernels", "flash_cases": FLASH_CASES,
@@ -1864,45 +1839,6 @@ def _ssd_inputs(torch, gen, B, S, H, P, N, dtype, dev, strong=False):
     return x, dt, A, Bm, Cm, s0
 
 
-def _rwkv_work(B, S, H, Dh, dtype_name):
-    """(bytes, FLOP, rate) of one WKV6 scan: r, k, v, w read once, y
-    written once and u read once in the model's dtype, the two float32
-    states; RWKV_OPS_PER_ELEMENT per state element per step, at the float32
-    rate in both dtypes (the recurrence runs on the CUDA cores)."""
-    itemsize = 2 if dtype_name == "bfloat16" else 4
-    nbytes = itemsize * (5 * B * S * H * Dh + H * Dh) + 8 * B * H * Dh * Dh
-    return (nbytes, float(RWKV_OPS_PER_ELEMENT) * B * S * H * Dh * Dh,
-            "float32")
-
-
-def _ssd_chunked_flop(B, S, H, P, N):
-    """The chunked form's tensor-core products: per (b, h) and chunk of n
-    steps C B^T (2 n n N), M X (2 n n P), C S_in^T and (scaled x)^T B
-    (2 n P N each).  The kernel's bf16 pairs double some of them; that is
-    its precision, not the function's work."""
-    from repro_torch.kernels.recurrence import SSD_CHUNK
-    per_bh = sum(2 * n * n * N + 2 * n * n * P + 4 * n * P * N
-                 for n in (min(SSD_CHUNK, S - c0)
-                           for c0 in range(0, S, SSD_CHUNK)))
-    return float(B * H * per_bh)
-
-
-def _ssd_work(B, S, H, P, N, dtype_name):
-    """(bytes, FLOP, rate) of one SSD scan: x read and y written, dt, B and
-    C read in the model's dtype, A and the two states in float32.  bf16
-    runs the chunked form, so its operations are the tensor-core products
-    at the bf16 rate (_ssd_chunked_flop; the bytes bound it at the serving
-    shape); float32 runs the stepwise kernel, so its operations stay
-    SSD_OPS_PER_ELEMENT per state element per step at the float32 rate."""
-    itemsize = 2 if dtype_name == "bfloat16" else 4
-    nbytes = itemsize * (2 * B * S * H * P + B * S * H + 2 * B * S * N) \
-        + 4 * H + 8 * B * H * P * N
-    if dtype_name == "bfloat16":
-        return nbytes, _ssd_chunked_flop(B, S, H, P, N), "bfloat16"
-    return (nbytes, float(SSD_OPS_PER_ELEMENT) * B * S * H * P * N,
-            "float32")
-
-
 def scan_timing(torch, dev) -> dict:
     """Each scan kernel at its serving prefill shape ("main"), in float32
     and bf16: the median CUDA-event time of a call (host wrapper inside)
@@ -1981,14 +1917,16 @@ def phase_scan_kernels(torch, dev):
     call for rwkv6 in both dtypes and for mamba2 in float32, and for the
     chunked bf16 mamba2 (whose chunk boundaries move with the cut) within
     STATE_TOL and y within the bf16 tolerance."""
+    from repro_torch.launch import cost
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = dict.fromkeys(SCAN_KERNELS, 0.0)
     state_err = dict.fromkeys(SCAN_KERNELS, 0.0)
     timing: dict = {k: {} for k in SCAN_KERNELS}
-    plan = (("rwkv6_scan", RWKV_CASES, _rwkv_inputs, _rwkv_work,
+    plan = (("rwkv6_scan", RWKV_CASES, _rwkv_inputs, cost.rwkv6_work,
              ops.rwkv6_scan),
-            ("mamba2_ssd", SSD_CASES, _ssd_inputs, _ssd_work, ops.mamba2_ssd))
+            ("mamba2_ssd", SSD_CASES, _ssd_inputs, cost.ssd_work,
+             ops.mamba2_ssd))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         tol = SCAN_TOL[dname]
@@ -2020,7 +1958,7 @@ def phase_scan_kernels(torch, dev):
                         torch, lambda: fn(*args, impl="torch"), n=3,
                         warmup=1)
                 rec["library_ms"] = None
-                rec["bound_ms"], rec["bound_by"] = _bound_ms(
+                rec["bound_ms"], rec["bound_by"] = cost.bound_ms(
                     *work(*shape, dname))
                 timing[kernel][f"{case}/{dname}"] = rec
                 del args, y, st, py, pst
@@ -2058,8 +1996,9 @@ def phase_scan_kernels(torch, dev):
     emit({"phase": "scan_kernels", "rwkv_cases": RWKV_CASES,
           "ssd_cases": SSD_CASES, "timing": timing, "max_abs_err": max_err,
           "state_max_abs_err": state_err, "state_carry": carry,
-          "ops_per_element": {"rwkv6_scan": RWKV_OPS_PER_ELEMENT,
-                              "mamba2_ssd (float32)": SSD_OPS_PER_ELEMENT}})
+          "ops_per_element": {
+              "rwkv6_scan": cost.RWKV_OPS_PER_ELEMENT,
+              "mamba2_ssd (float32)": cost.SSD_OPS_PER_ELEMENT}})
     return timing, max_err, state_err
 
 
@@ -2178,6 +2117,7 @@ def phase_serve_family(torch, dev, arch: str) -> tuple:
     profiled prefill and decode loop; for MoE the pairs a prefill drops at
     capacity_factor, and the weight floor of a dropless decode step (it
     reads every expert)."""
+    from repro_torch.launch import cost
     from repro_torch.launch import serve
     from repro_torch.models import active_param_count
     phase = FAMILY_PHASE[arch]
@@ -2223,7 +2163,7 @@ def phase_serve_family(torch, dev, arch: str) -> tuple:
         record["moe_prefill"] = _moe_drops(torch, cfg, model, params, prompt,
                                            dev)
         record["decode_weight_floor_ms"] = \
-            1e3 * weights_gb * 1e9 / PEAK_BYTES_S
+            1e3 * weights_gb * 1e9 / cost.PEAK_BYTES_S
         lap("moe_drops")
     record["seconds"] = seconds
     emit(record)
@@ -2965,6 +2905,7 @@ def phase_search(torch, dev, smi) -> dict:
 def _train_cases(torch):
     """The three training kernels' cases: (kernel, shape, the Function's
     entry in ops, the plain version, the input maker, the work)."""
+    from repro_torch.launch import cost
     from repro_torch.kernels import ops, ref
 
     def flash_inputs(gen, B, S, Skv, H, Hkv, D, causal, window, dtype, dev):
@@ -2983,18 +2924,18 @@ def _train_cases(torch):
                         q, k, v, causal=c, window=w),
                     lambda gen, dt, dev, case=case: flash_inputs(
                         gen, *case, dt, dev),
-                    lambda dname, case=case: (*_flash_work(
-                        *case, 2 if dname == "bfloat16" else 4), dname)))
+                    lambda dname, case=case: cost.flash_work(*case,
+                                                             dname)))
     out.append(("rwkv6_scan", "rwkv6", TRAIN_RWKV, ops.rwkv6_scan,
                 ref.rwkv6_scan_ref,
                 lambda gen, dt, dev: _rwkv_inputs(torch, gen, *TRAIN_RWKV,
                                                   dt, dev),
-                lambda dname: _rwkv_work(*TRAIN_RWKV, dname)))
+                lambda dname: cost.rwkv6_work(*TRAIN_RWKV, dname)))
     out.append(("mamba2_ssd", "zamba2", TRAIN_SSD, ops.mamba2_ssd,
                 ref.mamba2_ssd_ref,
                 lambda gen, dt, dev: _ssd_inputs(torch, gen, *TRAIN_SSD,
                                                  dt, dev),
-                lambda dname: _ssd_work(*TRAIN_SSD, dname)))
+                lambda dname: cost.ssd_work(*TRAIN_SSD, dname)))
     return out
 
 
@@ -3030,6 +2971,7 @@ def phase_train_kernels(torch, dev):
     forward + backward (the plain backward's share is the difference),
     autograd through the plain version, and for attention
     scaled_dot_product_attention's forward + backward (a yardstick)."""
+    from repro_torch.launch import cost
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -3085,7 +3027,7 @@ def phase_train_kernels(torch, dev):
                "plain_ms": _time_ms(torch, lambda: fwd_bwd(plain), n=3,
                                     warmup=1)}
         rec["plain_backward_share"] = 1.0 - rec["forward_ms"] / rec["ms"]
-        rec["bound_ms"], rec["bound_by"] = _bound_ms(*work(dname))
+        rec["bound_ms"], rec["bound_by"] = cost.bound_ms(*work(dname))
         rec["library_ms"] = None
         if kernel == "flash_attention":
             qkv = [a.transpose(1, 2) for a in args]
@@ -3674,6 +3616,194 @@ def _tensor_cores(build: dict, kernel: str):
     return {n: c for n, c in tc.items() if n.startswith(kernel)}
 
 
+def start_dryrun_grid():
+    """Start tracing launch/dryrun.py's pod16x16 grid in DRYRUN_JOBS spawned
+    processes (host work on meta tensors); ``phase_dryrun`` collects it.
+    Returns (pool, futures by cell, records directory, start time)."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+    out = tempfile.TemporaryDirectory(prefix="dryrun_torch_")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        DRYRUN_JOBS, mp_context=multiprocessing.get_context("spawn"))
+    futures = {(a, s): pool.submit(dryrun.run_cell, a, s, force=True,
+                                   verbose=False, out_dir=out.name)
+               for a in ARCH_IDS for s in SHAPES}
+    return pool, futures, out, time.perf_counter()
+
+
+def phase_dryrun(grid) -> dict:
+    """The pod16x16 grid's records: no cell in error, the skipped cells
+    exactly the long_500k cells of the full-attention archs (the
+    reference's split: 32 traced, 8 skipped); each cell's status, trace_s,
+    FLOPs, temporaries and any kernel refusals."""
+    from repro_torch.configs import SHAPES, cell_supported, get_arch
+    pool, futures, out, t0 = grid
+    try:
+        recs = {cell: f.result() for cell, f in futures.items()}
+    finally:
+        pool.shutdown()
+        out.cleanup()
+    wall = time.perf_counter() - t0
+    errors = {f"{a} x {s}": r["error"] for (a, s), r in recs.items()
+              if r["status"] == "error"}
+    check(not errors, f"dryrun: cells in error: {errors}")
+    skipped = {cell for cell, r in recs.items() if r["status"] == "skipped"}
+    want = {(a, s) for a, s in recs
+            if not cell_supported(get_arch(a), SHAPES[s])[0]}
+    check(skipped == want and all(s == "long_500k" for _, s in skipped),
+          f"dryrun: skipped {sorted(skipped)}, want {sorted(want)}")
+    status = {k: sum(r["status"] == k for r in recs.values())
+              for k in ("ok", "refused", "skipped", "error")}
+    cells = {f"{a} x {s}": {
+        "status": r["status"], "trace_s": r.get("trace_s"),
+        "flops": r.get("cost", {}).get("flops"),
+        "temp_bytes": r.get("memory", {}).get("temp_bytes"),
+        "argument_bytes": r.get("memory", {}).get("argument_bytes"),
+        "refused": r.get("refused")} for (a, s), r in recs.items()}
+    emit({"phase": "dryrun", "mesh": "pod16x16", "jobs": DRYRUN_JOBS,
+          "wall_s_from_start": wall, "status": status, "cells": cells})
+    return status
+
+
+def _real_args(torch, arch, shape, dev) -> tuple:
+    """A cell's arguments on the card, from seeds: the train state (seeded
+    weights, zero moments) and tokens; or the weights and tokens; or the
+    weights, a zero cache of seq_len, one token a sequence and pos =
+    seq_len - 1 (a full cache)."""
+    from repro_torch.models import get_model
+    from repro_torch.models.steps import init_train_state
+    from repro_torch.optim import adamw
+    B, S = shape.global_batch, shape.seq_len
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tokens(*dims):
+        return torch.randint(0, arch.vocab_size, dims, generator=gen,
+                             dtype=torch.int32, device=dev)
+    model = get_model(arch)
+    if shape.kind == "train":
+        opt = adamw.AdamWConfig(
+            moment_dtype="bf16" if arch.opt_dtype == "bf16" else "fp32")
+        return init_train_state(arch, 0, opt, device=dev), \
+            {"tokens": tokens(B, S)}
+    params = model.init(0, device=dev)
+    if shape.kind == "prefill":
+        return params, {"tokens": tokens(B, S)}
+    return (params, model.init_cache(B, S, device=dev), tokens(B, 1),
+            torch.full((B,), S - 1, dtype=torch.int32, device=dev))
+
+
+def _fitting_cell(arch, shape, mesh) -> tuple:
+    """(shape, cell, counts, cuts): the cell's dry run, whole if its
+    arguments plus temporaries fit one card, else at the largest
+    power-of-two global batch whose dry run fits (the guess: the
+    arguments kept, the temporaries scaled with the batch)."""
+    from repro_torch.launch import cost, dryrun
+    cuts = []
+    cell, counted = dryrun.trace_cell(arch, shape, mesh)
+    while True:
+        args = cost.tree_bytes(cell["args"])
+        need = args + counted["temp_bytes"]
+        if need <= cost.HBM_BYTES:
+            return shape, cell, counted, cuts
+        B = shape.global_batch
+        guess = max(1, int(B * (cost.HBM_BYTES - args)
+                           / counted["temp_bytes"]))
+        new_B = min(B // 2, 1 << (guess.bit_length() - 1))
+        check(new_B >= 1, f"dryrun_cells: {arch.name} x {shape.name} does "
+              "not fit one card at batch 1")
+        cuts.append({"global_batch": B, "bytes": need})
+        shape = dataclasses.replace(shape, global_batch=new_B)
+        cell, counted = dryrun.trace_cell(arch, shape, mesh)
+
+
+def phase_dryrun_cells(torch, dev) -> dict:
+    """DRYRUN_CELLS on one card: each cell's dry run on meta (h100x1;
+    batch cut to fit, every cut listed), then its step on the card under
+    the same counting mode, launch counts zeroed just before and read just
+    after: launches equal to ops.launch_counts() and to the dry run's, the
+    arguments' bytes, FLOPs equal on meta and on the card, the predicted
+    peak within DRYRUN_PEAK_TOL of max_memory_allocated (both recorded),
+    every output finite; the step's time is that run's (the counting
+    mode's host work on every aten op inside it).  Returns {path:
+    launches}."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import one_card_mesh
+    mesh = one_card_mesh()
+    by_path, recs = {}, {}
+    torch.cuda.empty_cache()
+    for arch_id, shape_id in DRYRUN_CELLS:
+        name = f"{arch_id} x {shape_id}"
+        arch = get_arch(arch_id)
+        t0 = time.perf_counter()
+        shape, cell, meta, cuts = _fitting_cell(arch, SHAPES[shape_id], mesh)
+        trace_s = time.perf_counter() - t0
+        predicted = cost.tree_bytes(cell["args"]) + meta["temp_bytes"]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        args = _real_args(torch, arch, shape, dev)
+        arg_bytes = cost.tree_bytes(args)
+        check(arg_bytes == cost.tree_bytes(cell["args"]),
+              f"dryrun_cells {name}: arguments {arg_bytes} bytes on the "
+              f"card, {cost.tree_bytes(cell['args'])} in the dry run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        real = cost.count(cell["fn"], *args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - before
+        outs = [t for t in cost.tensors(real["outputs"])
+                if t.is_floating_point()]
+        check(all(bool(torch.isfinite(t).all()) for t in outs),
+              f"dryrun_cells {name}: an output is not finite")
+        del real["outputs"], outs
+        for k in ops.KERNELS:
+            n_meta = meta["kernels"][k]["launches"]
+            n_real = real["kernels"][k]["launches"]
+            check(n_meta == n_real == launches[k],
+                  f"dryrun_cells {name}: {k} launched {launches[k]} times, "
+                  f"counted {n_real} on the card and {n_meta} on meta")
+        check(any(launches.values()),
+              f"dryrun_cells {name}: no kernel launched")
+        check(real["flops"] == meta["flops"],
+              f"dryrun_cells {name}: {real['flops']} FLOP on the card, "
+              f"{meta['flops']} on meta")
+        gap = abs(predicted - peak) / peak
+        check(gap <= DRYRUN_PEAK_TOL,
+              f"dryrun_cells {name}: predicted peak {predicted} bytes, "
+              f"{peak} measured ({gap:.3f} off)")
+        del args
+        torch.cuda.empty_cache()
+        path = f"dryrun_cells/{arch_id}/{shape_id}"
+        by_path[path] = launches
+        recs[name] = {
+            "global_batch": shape.global_batch, "seq_len": shape.seq_len,
+            "cuts": cuts, "trace_s": trace_s, "launches": launches,
+            "argument_bytes": arg_bytes, "temp_bytes": meta["temp_bytes"],
+            "predicted_peak_bytes": predicted, "measured_peak_bytes": peak,
+            "peak_gap": gap, "flops": meta["flops"],
+            "traffic_bytes": meta["traffic_bytes"],
+            "kernel_bound_ms": {k: v["bound_ms"]
+                                for k, v in meta["kernels"].items()
+                                if v["launches"]},
+            "step_s": step_s, "tflop_s": meta["flops"] / step_s / 1e12,
+            "left_allocated_bytes": torch.cuda.memory_allocated() - before,
+            "refused": {k: v["refused"] for k, v in meta["kernels"].items()
+                        if v["refused"]}}
+    emit({"phase": "dryrun_cells", "mesh": mesh.name,
+          "peak_tol": DRYRUN_PEAK_TOL, "hbm_bytes": cost.HBM_BYTES,
+          "cells": recs})
+    return by_path
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every record to this file")
@@ -3747,12 +3877,20 @@ def main(argv=None) -> int:
     by_path["obs"] = phase_obs(torch, dev, smi, cfg, slice_result, trained,
                                serve_async_broker)
     by_path["online_bench"] = phase_online_bench(torch, dev, smi)
-    train_timing, train_fwd_err, train_err = phase_train_kernels(torch, dev)
-    train_paths = {TRAIN_PHASE[arch]: phase_train_step(torch, dev, arch)[0]
-                   for arch in TRAIN_ARCHS}
-    train_paths["train_vlm"] = phase_train_vlm(torch, dev)
-    train_paths["train_elastic"] = phase_train_elastic(torch, dev)
-    phase_compression(torch, dev)
+    grid = start_dryrun_grid()
+    try:
+        train_timing, train_fwd_err, train_err = phase_train_kernels(torch,
+                                                                     dev)
+        train_paths = {TRAIN_PHASE[arch]: phase_train_step(torch, dev,
+                                                           arch)[0]
+                       for arch in TRAIN_ARCHS}
+        train_paths["train_vlm"] = phase_train_vlm(torch, dev)
+        train_paths["train_elastic"] = phase_train_elastic(torch, dev)
+        phase_compression(torch, dev)
+        phase_dryrun(grid)
+    finally:                        # the grid's processes end with the script
+        grid[0].shutdown(cancel_futures=True)
+    dry_paths = phase_dryrun_cells(torch, dev)
 
     def train_fields(k):
         """The training paths' launches of kernel k and its train_kernels
@@ -3841,6 +3979,11 @@ def main(argv=None) -> int:
                       if n.startswith(k)},
             "tensor_core_instructions": _tensor_cores(build, k),
             **train_rec})
+    for rec in kernels:             # dryrun_cells' real runs
+        dry = {p: n[rec["name"]] for p, n in dry_paths.items()
+               if n[rec["name"]]}
+        rec["launches"] += sum(dry.values())
+        rec["launches_by_path"].update(dry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     if args.out:
         out = pathlib.Path(args.out)

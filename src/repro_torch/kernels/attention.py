@@ -4,7 +4,9 @@
 Each launcher checks what the kernel takes (device, dtype, shape,
 contiguity), allocates the output, launches on the current stream of the
 tensors' device and raises if the launch was refused.  It allocates no
-scratch and does not synchronise.  The kernels replace the Pallas TPU
+scratch and does not synchronise.  A ``meta`` tensor (the dry run under
+``launch/cost.py``'s counting mode) passes the same checks and gets its
+output without a launch.  The kernels replace the Pallas TPU
 kernels ``repro/kernels/flash_attention.py:flash_attention`` and
 ``repro/kernels/decode_attention.py:decode_attention``; ``kernels.ref``
 holds their plain versions.
@@ -90,7 +92,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 
 def _check_q(q: torch.Tensor, max_group: int, H: int, Hkv: int):
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         raise ValueError(f"the CUDA attention kernels take CUDA tensors; q is "
                          f"on {q.device}")
     if q.dtype not in DTYPES:
@@ -136,6 +138,8 @@ def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
     _check(k, "k", q.dtype, (B, Skv, Hkv, D), dev)
     _check(v, "v", q.dtype, (B, Skv, Hkv, D), dev)
     out = torch.empty_like(q)
+    if q.is_meta:                   # the dry run: checked, not launched
+        return out
     lib = _build.load()
     with _on(dev):
         rc = lib.flash_attention_launch(
@@ -161,6 +165,8 @@ def decode_attention(q, k, v, kv_len, *, window=0) -> torch.Tensor:
     _check(v, "v", q.dtype, (B, Smax, Hkv, D), dev)
     _check(kv_len, "kv_len", torch.int32, (B,), dev)
     out = torch.empty_like(q)
+    if q.is_meta:                   # the dry run: checked, not launched
+        return out
     lib = _build.load()
     with _on(dev):
         rc = lib.decode_attention_launch(

@@ -21,7 +21,16 @@ the previous chunk's final state (the kernels return only the final
 state, and the adjoint needs each chunk's first), and their backward is
 the chunked adjoint
 (``ref.RWKV6Scan``, ``ref.SSDScan``).  Every forward launch counts, the
-recomputation of a rematerialised layer's forward included."""
+recomputation of a rematerialised layer's forward included.
+
+Under ``launch.cost``'s counting mode every launch also records its work
+(bytes and FLOP by ``launch.cost``'s formulas), and a ``meta`` tensor
+stands for a tensor on the card: ``impl`` None or "cuda" resolves to the
+kernel, whose launcher runs its checks and returns meta outputs without
+launching (no plain version runs, no launch is counted); shapes the
+launcher refuses are recorded as refused and counted all the same.  This
+is the dry run's path; outside the mode a meta tensor resolves as any
+non-CUDA tensor does."""
 
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import threading
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.launch import cost
 
 IMPLS = ("torch", "cuda")
 KERNELS = ("forest_infer", "forest_infer_grouped", "flash_attention",
@@ -75,15 +85,51 @@ def _count(kernel: str):
         _LAUNCHES[kernel] += 1
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """x is on the card, or is a meta tensor standing for one under the
+    counting mode."""
+    return x.is_cuda or (x.is_meta and cost.active() is not None)
+
+
 def _resolve(impl: str | None, x: torch.Tensor, name: str = "x") -> str:
     if impl is None:
-        return "cuda" if x.is_cuda else "torch"
+        return "cuda" if _on_card(x) else "torch"
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS} or None, got {impl!r}")
-    if impl == "cuda" and not x.is_cuda:
+    if impl == "cuda" and not _on_card(x):
         raise ValueError(f"impl='cuda' needs CUDA tensors; {name} is on "
                          f"{x.device}")
     return impl
+
+
+def _record(kernel: str, work, refused: str | None = None):
+    """Record one launch's ``work()`` (bytes, FLOP, rate dtype) with the
+    counting mode, if one is active."""
+    mode = cost.active()
+    if mode is not None:
+        mode.kernel(kernel, work(), refused)
+
+
+def _launch(kernel: str, x: torch.Tensor, launch, work, outputs):
+    """``launch()`` the kernel, count it and record its work.  On a meta
+    ``x`` (the counting mode's stand-in for the card) the launcher only
+    checks and allocates, and nothing is counted; where it refuses the
+    shapes, ``outputs()`` gives the outputs and the refusal is recorded."""
+    refused = None
+    if x.is_meta:
+        try:
+            out = launch()
+        except (ValueError, TypeError) as e:
+            refused, out = str(e), outputs()
+    else:
+        out = launch()
+        _count(kernel)
+    _record(kernel, work, refused)
+    return out
+
+
+def _dtype_name(x: torch.Tensor) -> str:
+    return str(x.dtype).removeprefix("torch.")
 
 
 def _plain(out, host, result):
@@ -107,6 +153,9 @@ def forest_infer(x, feat_idx, thresholds, leaves, *, impl=None, out=None,
     from repro_torch.kernels import forest as fk
     out = fk.forest_infer(x, feat_idx, thresholds, leaves, out, host)
     _count("forest_infer")
+    _record("forest_infer", lambda: cost.forest_work(
+        x.shape[0], x.shape[1], *feat_idx.shape, 1,
+        x.shape[0] * feat_idx.shape[0]))
     return out
 
 
@@ -128,7 +177,19 @@ def forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves, n_trees,
     out = fk.forest_infer_grouped(x, seg_start, feat_idx, thresholds, leaves,
                                   n_trees, out, host)
     _count("forest_infer_grouped")
+    _record("forest_infer_grouped", lambda: _grouped_work(
+        x, seg_start, feat_idx, n_trees))
     return out
+
+
+def _grouped_work(x, seg_start, feat_idx, n_trees):
+    """The grouped call's work on this data: each segment's rows times its
+    own tree count (read back from the card; only under the counting
+    mode)."""
+    M, T, D = feat_idx.shape
+    sizes = (seg_start[1:] - seg_start[:-1]).tolist()
+    trees = sum(n * t for n, t in zip(sizes, n_trees.tolist()))
+    return cost.forest_work(x.shape[0], x.shape[1], T, D, M, trees)
 
 
 def _under_grad(*ts) -> bool:
@@ -176,8 +237,13 @@ def _common_dtype(q, k, v):
 def _flash_kernel(q, k, v, *, causal, window):
     from repro_torch.kernels import attention as ak
     q, k, v, out_dtype = _common_dtype(q, k, v)
-    out = ak.flash_attention(q, k, v, causal=causal, window=window)
-    _count("flash_attention")
+    B, S, H, D = q.shape
+    out = _launch(
+        "flash_attention", q,
+        lambda: ak.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: cost.flash_work(B, S, k.shape[1], H, k.shape[2], D, causal,
+                                window, _dtype_name(q)),
+        lambda: torch.empty_like(q))
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
@@ -199,16 +265,24 @@ def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
         return ref.decode_attention_ref(q, k, v, kv_len, window=window)
     from repro_torch.kernels import attention as ak
     q, k, v, out_dtype = _common_dtype(q, k, v)
-    out = ak.decode_attention(q, k, v, kv_len, window=window)
-    _count("decode_attention")
+    B, _, H, D = q.shape
+    Smax = k.shape[1]
+    out = _launch(
+        "decode_attention", q,
+        lambda: ak.decode_attention(q, k, v, kv_len, window=window),
+        lambda: cost.decode_work(
+            B, Smax, H, k.shape[2], D, window,
+            [Smax] * B if q.is_meta else kv_len.tolist(), _dtype_name(q)),
+        lambda: torch.empty_like(q))
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
 def _rwkv6_kernel(r, k, v, w, u, state0):
     from repro_torch.kernels import recurrence as rk
-    out = rk.rwkv6_scan(r, k, v, w, u, state0)
-    _count("rwkv6_scan")
-    return out
+    return _launch(
+        "rwkv6_scan", r, lambda: rk.rwkv6_scan(r, k, v, w, u, state0),
+        lambda: cost.rwkv6_work(*r.shape, _dtype_name(r)),
+        lambda: (torch.empty_like(r), torch.empty_like(state0)))
 
 
 def rwkv6_scan(r, k, v, w, u, state0, *, impl=None):
@@ -224,9 +298,10 @@ def rwkv6_scan(r, k, v, w, u, state0, *, impl=None):
 
 def _ssd_kernel(x, dt, B, C, A, state0):
     from repro_torch.kernels import recurrence as rk
-    out = rk.mamba2_ssd(x, dt, A, B, C, state0)
-    _count("mamba2_ssd")
-    return out
+    return _launch(
+        "mamba2_ssd", x, lambda: rk.mamba2_ssd(x, dt, A, B, C, state0),
+        lambda: cost.ssd_work(*x.shape, B.shape[-1], _dtype_name(x)),
+        lambda: (torch.empty_like(x), torch.empty_like(state0)))
 
 
 def mamba2_ssd(x, dt, A, B, C, state0, *, impl=None):

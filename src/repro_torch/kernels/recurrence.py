@@ -3,7 +3,9 @@
 Each launcher checks what the kernel takes (device, dtype, shape,
 contiguity), allocates the outputs, launches on the current stream of the
 tensors' device and raises if the launch was refused.  It does not
-synchronise.  The kernels replace the Pallas TPU kernels
+synchronise.  A ``meta`` tensor (the dry run under ``launch/cost.py``'s
+counting mode) passes the same checks and gets its outputs without a
+launch.  The kernels replace the Pallas TPU kernels
 ``repro/kernels/rwkv6_scan.py:rwkv6_scan`` and
 ``repro/kernels/mamba2_ssd.py:mamba2_ssd``; ``kernels.ref`` holds their plain
 versions (and ``mamba2_ssd_chunked_ref``, the bf16 SSD kernel's algorithm).
@@ -95,7 +97,7 @@ def built_geometry(kernel: str, dims: tuple, dtype: torch.dtype) -> dict:
 
 
 def _check_lead(x: torch.Tensor, name: str, ndim: int):
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         raise ValueError(f"the CUDA recurrence kernels take CUDA tensors; "
                          f"{name} is on {x.device}")
     if x.dtype not in DTYPES:
@@ -125,6 +127,8 @@ def rwkv6_scan(r, k, v, w, u, state0):
     _check(state0, "state0", torch.float32, (B, H, Dh, Dh), dev)
     y = torch.empty_like(r)
     state = torch.empty_like(state0)
+    if r.is_meta:                   # the dry run: checked, not launched
+        return y, state
     lib = _build.load()
     with _on(dev):
         rc = lib.rwkv6_scan_launch(
@@ -155,6 +159,8 @@ def mamba2_ssd(x, dt, A, Bmat, Cmat, state0):
     _check(state0, "state0", torch.float32, (Bb, H, P, N), dev)
     y = torch.empty_like(x)
     state = torch.empty_like(state0)
+    if x.is_meta:                   # the dry run: checked, not launched
+        return y, state
     lib = _build.load()
     with _on(dev):
         rc = lib.mamba2_ssd_launch(

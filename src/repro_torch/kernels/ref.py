@@ -28,13 +28,18 @@ float32, y cast back to the input's dtype.  Their gradients are the
 reference's chunked adjoints (``repro/kernels/ref.py:_rwkv6_fwd/_rwkv6_bwd``
 and ``_ssd_fwd/_ssd_bwd``), as ``torch.autograd.Function``s whose forward
 is any scan of the chunk (the plain loop here, or the CUDA kernel through
-``kernels.ops``)."""
+``kernels.ops``).  On ``meta`` under ``launch/cost.py``'s counting mode an
+adjoint runs one chunk, and one step of each per-step loop, and has it
+counted for all (``cost.repeat``): every chunk and step dispatches the
+same operations on the same shapes."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.launch import cost
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -376,37 +381,50 @@ def _rwkv6_bwd(r, k, v, w, u, bounds, chunk, ybar, sbar):
     grads = [torch.empty(B, S, H, Dh, device=r.device) for _ in range(4)]
     ubar = torch.zeros(H, Dh, device=r.device)
     sbar = sbar.float()
-    for ci in reversed(range(S // chunk)):
-        c0 = ci * chunk
-        rc, kc, vc, wc, yb = (_time_major(t, c0, chunk)
-                              for t in (r, k, v, w, ybar))   # (c, B, H, Dh)
-        kv = kc[..., :, None] * vc[..., None, :]             # (c, B, H, K, V)
-        # the chunk's states: states[t] = S_{t-1}, the state before step t
-        states = torch.empty((chunk + 1,) + sbar.shape, device=r.device)
-        states[0] = bounds[ci]
-        for t in range(chunk):
+    with cost.repeat(r, S // chunk) as n_chunks:   # every chunk alike
+        for ci in list(reversed(range(S // chunk)))[:n_chunks]:
+            sbar = _rwkv6_bwd_chunk(r, k, v, w, uf, bounds, chunk, ybar,
+                                    sbar, grads, ubar, ci)
+    return (*grads, ubar, sbar)
+
+
+def _rwkv6_bwd_chunk(r, k, v, w, uf, bounds, chunk, ybar, sbar, grads,
+                     ubar, ci):
+    """Chunk ci of the WKV6 adjoint: writes its rows of ``grads``, adds
+    to ``ubar`` and returns the adjoint of the chunk's first state."""
+    c0 = ci * chunk
+    rc, kc, vc, wc, yb = (_time_major(t, c0, chunk)
+                          for t in (r, k, v, w, ybar))   # (c, B, H, Dh)
+    kv = kc[..., :, None] * vc[..., None, :]             # (c, B, H, K, V)
+    # the chunk's states: states[t] = S_{t-1}, the state before step t
+    states = torch.empty((chunk + 1,) + sbar.shape, device=r.device)
+    states[0] = bounds[ci]
+    with cost.repeat(r, chunk) as steps:   # every step alike
+        for t in range(steps):
             torch.addcmul(kv[t], wc[t][..., None], states[t],
                           out=states[t + 1])
-        s_prev = states[:chunk]
-        # the state adjoints: sbars[t] = dL/dS_t, S_t the state after step t
-        ry = rc[..., :, None] * yb[..., None, :]             # output path
-        sbars = torch.empty_like(s_prev)
-        sbars[chunk - 1] = sbar
-        for t in range(chunk - 1, 0, -1):
-            torch.addcmul(ry[t], wc[t][..., None], sbars[t], out=sbars[t - 1])
-        sbar = torch.addcmul(ry[0], wc[0][..., None], sbars[0])
-        m = s_prev + uf[None, None, :, :, None] * kv
-        yv = (yb * vc).sum(-1)                               # (c, B, H)
-        rbar = torch.einsum("tbhkv,tbhv->tbhk", m, yb)
-        kbar = torch.einsum("tbhkv,tbhv->tbhk", sbars, vc) \
-            + uf * rc * yv[..., None]
-        vbar = torch.einsum("tbhkv,tbhk->tbhv", sbars, kc) \
-            + yb * (rc * uf * kc).sum(-1)[..., None]
-        wbar = (sbars * s_prev).sum(-1)
-        ubar += torch.einsum("tbhk,tbh->hk", rc * kc, yv)
-        for g, gc in zip(grads, (rbar, kbar, vbar, wbar)):
-            g[:, c0:c0 + chunk] = gc.movedim(0, 1)
-    return (*grads, ubar, sbar)
+    s_prev = states[:chunk]
+    # the state adjoints: sbars[t] = dL/dS_t, S_t the state after step t
+    ry = rc[..., :, None] * yb[..., None, :]             # output path
+    sbars = torch.empty_like(s_prev)
+    sbars[chunk - 1] = sbar
+    with cost.repeat(r, chunk - 1) as steps:
+        for t in range(chunk - 1, chunk - 1 - steps, -1):
+            torch.addcmul(ry[t], wc[t][..., None], sbars[t],
+                          out=sbars[t - 1])
+    sbar = torch.addcmul(ry[0], wc[0][..., None], sbars[0])
+    m = s_prev + uf[None, None, :, :, None] * kv
+    yv = (yb * vc).sum(-1)                               # (c, B, H)
+    rbar = torch.einsum("tbhkv,tbhv->tbhk", m, yb)
+    kbar = torch.einsum("tbhkv,tbhv->tbhk", sbars, vc) \
+        + uf * rc * yv[..., None]
+    vbar = torch.einsum("tbhkv,tbhk->tbhv", sbars, kc) \
+        + yb * (rc * uf * kc).sum(-1)[..., None]
+    wbar = (sbars * s_prev).sum(-1)
+    ubar += torch.einsum("tbhk,tbh->hk", rc * kc, yv)
+    for g, gc in zip(grads, (rbar, kbar, vbar, wbar)):
+        g[:, c0:c0 + chunk] = gc.movedim(0, 1)
+    return sbar
 
 
 class RWKV6Scan(torch.autograd.Function):
@@ -460,6 +478,20 @@ def _ssd_bwd(x, dt, A, Bmat, Cmat, bounds, chunk, ybar, sbar):
     sbar = sbar.float()
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()
+    with cost.repeat(x, S // chunk) as n_chunks:   # every chunk alike
+        for ci in list(reversed(range(S // chunk)))[:n_chunks]:
+            sbar = _ssd_bwd_chunk(x, dt, Af, Bmat, Cmat, bounds, chunk, ybar,
+                                  sbar, (gx, gdt, gB, gC), Abar, causal, ci)
+    return gx, gdt, Abar, gB, gC, sbar
+
+
+def _ssd_bwd_chunk(x, dt, Af, Bmat, Cmat, bounds, chunk, ybar, sbar, grads,
+                   Abar, causal, ci):
+    """Chunk ci of the SSD adjoint: writes its rows of ``grads`` (x, dt,
+    B, C), adds to ``Abar`` and returns the adjoint of the chunk's first
+    state."""
+    Bb, _, H, P = x.shape
+    N = Bmat.shape[-1]
 
     def by_step(flat):                       # (B, H, c, P*N) -> (c, B, H, P, N)
         return flat.reshape(Bb, H, chunk, P, N).permute(2, 0, 1, 3, 4)
@@ -467,37 +499,36 @@ def _ssd_bwd(x, dt, A, Bmat, Cmat, bounds, chunk, ybar, sbar):
     def flat(t):                             # (c, B, H, P, N) -> (B, H, c, P*N)
         return t.permute(1, 2, 0, 3, 4).reshape(Bb, H, chunk, P * N)
 
-    for ci in reversed(range(S // chunk)):
-        c0 = ci * chunk
-        xc, dtc, bc, cc, yb = (_time_major(t, c0, chunk)
-                               for t in (x, dt, Bmat, Cmat, ybar))
-        log_decay = dtc * Af                                 # (c, B, H)
-        decay = torch.exp(log_decay)
-        cs = torch.cumsum(log_decay, dim=0).permute(1, 2, 0)  # (B, H, c)
-        L = torch.exp(torch.where(causal, cs[..., :, None] - cs[..., None, :],
-                                  -math.inf))                # (B, H, t, s)
-        s0 = bounds[ci].reshape(Bb, H, 1, P * N)
-        inject = (dtc[..., None] * xc)[..., :, None] * bc[:, :, None, None, :]
-        s_t = by_step(L @ flat(inject) + torch.exp(cs)[..., None] * s0)
-        s_prev = torch.cat([bounds[ci][None], s_t[:-1]])
-        # sbt[t] = dL/dS_t with step t's output term yb_t C_t^T, carried back
-        # through the decays; the adjoint of the chunk's first state is
-        # decay_0 sbt[0]
-        yc = yb[..., :, None] * cc[:, :, None, None, :]
-        sbt = by_step(L.transpose(-1, -2) @ flat(yc)
-                      + torch.exp(cs[..., -1:] - cs)[..., None]
-                      * sbar.reshape(Bb, H, 1, P * N))
-        sbar = decay[0][..., None, None] * sbt[0]
-        cbar = torch.einsum("tbhpn,tbhp->tbn", s_t, yb)
-        abar = (sbt * s_prev).sum((-2, -1))                  # d/d decay
-        sb_b = torch.einsum("tbhpn,tbn->tbhp", sbt, bc)
-        dtbar = abar * decay * Af + (sb_b * xc).sum(-1)
-        xbar = dtc[..., None] * sb_b
-        bbar = torch.einsum("tbhpn,tbhp->tbn", sbt, dtc[..., None] * xc)
-        Abar += torch.einsum("tbh,tbh->h", abar * decay, dtc)
-        for g, gc in ((gx, xbar), (gdt, dtbar), (gB, bbar), (gC, cbar)):
-            g[:, c0:c0 + chunk] = gc.movedim(0, 1)
-    return gx, gdt, Abar, gB, gC, sbar
+    c0 = ci * chunk
+    xc, dtc, bc, cc, yb = (_time_major(t, c0, chunk)
+                           for t in (x, dt, Bmat, Cmat, ybar))
+    log_decay = dtc * Af                                 # (c, B, H)
+    decay = torch.exp(log_decay)
+    cs = torch.cumsum(log_decay, dim=0).permute(1, 2, 0)  # (B, H, c)
+    L = torch.exp(torch.where(causal, cs[..., :, None] - cs[..., None, :],
+                              -math.inf))                # (B, H, t, s)
+    s0 = bounds[ci].reshape(Bb, H, 1, P * N)
+    inject = (dtc[..., None] * xc)[..., :, None] * bc[:, :, None, None, :]
+    s_t = by_step(L @ flat(inject) + torch.exp(cs)[..., None] * s0)
+    s_prev = torch.cat([bounds[ci][None], s_t[:-1]])
+    # sbt[t] = dL/dS_t with step t's output term yb_t C_t^T, carried back
+    # through the decays; the adjoint of the chunk's first state is
+    # decay_0 sbt[0]
+    yc = yb[..., :, None] * cc[:, :, None, None, :]
+    sbt = by_step(L.transpose(-1, -2) @ flat(yc)
+                  + torch.exp(cs[..., -1:] - cs)[..., None]
+                  * sbar.reshape(Bb, H, 1, P * N))
+    sbar = decay[0][..., None, None] * sbt[0]
+    cbar = torch.einsum("tbhpn,tbhp->tbn", s_t, yb)
+    abar = (sbt * s_prev).sum((-2, -1))                  # d/d decay
+    sb_b = torch.einsum("tbhpn,tbn->tbhp", sbt, bc)
+    dtbar = abar * decay * Af + (sb_b * xc).sum(-1)
+    xbar = dtc[..., None] * sb_b
+    bbar = torch.einsum("tbhpn,tbhp->tbn", sbt, dtc[..., None] * xc)
+    Abar += torch.einsum("tbh,tbh->h", abar * decay, dtc)
+    for g, gc in zip(grads, (xbar, dtbar, bbar, cbar)):
+        g[:, c0:c0 + chunk] = gc.movedim(0, 1)
+    return sbar
 
 
 class SSDScan(torch.autograd.Function):

@@ -139,6 +139,13 @@ def cache_struct(cfg: ArchConfig, batch: int, max_len: int) -> dict:
                                 ("xv", xkv))}
 
 
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical axes matching cache_struct (for sharding)."""
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    xkv = ("layers", "batch", "frames", "kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "xk": xkv, "xv": xkv}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
     return zeros_of(cache_struct(cfg, batch, max_len), device)

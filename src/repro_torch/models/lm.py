@@ -392,6 +392,26 @@ def cache_struct(cfg: ArchConfig, batch: int, max_len: int) -> dict:
             "shared_k": meta(kv, dt), "shared_v": meta(kv, dt)}
 
 
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical axes matching cache_struct (for sharding)."""
+    _require_family(cfg)
+    if cfg.family in ("dense", "moe"):
+        kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        return {"k": kv, "v": kv}
+    if cfg.family == "ssm":
+        return {"wkv": ("layers", "batch", "heads", "head_dim", "head_dim"),
+                "tm_prev": ("layers", "batch", "embed"),
+                "cm_prev": ("layers", "batch", "embed")}
+    if cfg.family == "hybrid":
+        kv = ("layers", "batch", "kv_seq", "heads", "head_dim")
+        return {"conv": ("layers", "batch", "conv", "heads_x_dim"),
+                "ssd": ("layers", "batch", "heads", "head_dim", "state"),
+                "shared_k": kv, "shared_v": kv}
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    xkv = ("layers", "batch", "frames", "kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "xk": xkv, "xv": xkv}
+
+
 def zeros_of(struct: dict, device: torch.device) -> dict:
     """Zero tensors on ``device`` of a cache_struct's shapes and dtypes."""
     return {name: torch.zeros(s.shape, dtype=s.dtype, device=device)

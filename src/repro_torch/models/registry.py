@@ -17,7 +17,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import encdec, lm
 from repro_torch.models.layers import NO_SHARD
-from repro_torch.parallel.axes import abstract_params, init_params, param_numel
+from repro_torch.parallel.axes import (abstract_params, init_params,
+                                       param_numel, params_axes)
 
 FAMILIES = lm.FAMILIES + ("audio",)
 
@@ -67,6 +68,9 @@ class Model:
     def abstract_params(self):
         return abstract_params(self.param_defs(), self.cfg.dtype)
 
+    def params_axes(self):
+        return params_axes(self.param_defs())
+
     def init(self, seed: int, device=None):
         """Seeded random parameters, materialised on ``device`` layer by
         layer (``parallel.axes.init_params``)."""
@@ -98,6 +102,9 @@ class Model:
     # --- caches
     def cache_struct(self, batch: int, max_len: int):
         return family_module(self.cfg).cache_struct(self.cfg, batch, max_len)
+
+    def cache_axes(self):
+        return family_module(self.cfg).cache_axes(self.cfg)
 
     def init_cache(self, batch: int, max_len: int, device=None):
         return family_module(self.cfg).init_cache(self.cfg, batch, max_len,

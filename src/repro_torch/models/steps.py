@@ -6,7 +6,7 @@ the loss and its gradients with ``torch.autograd`` (the reference's
 ``jax.value_and_grad``), accumulates them over microbatches in the
 reference's order and dtypes, and applies AdamW; nothing is updated in
 place, so a caller may keep the state it passed in.  ``train_state_axes``
-waits for the port's sharding rules."""
+is the state's tree of logical axes, which the dry run's shardings read."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch import cost
 from repro_torch.models.layers import NO_SHARD, ShardCtx, lm_head_apply
 from repro_torch.models.registry import family_module, get_model
 from repro_torch.optim import adamw
@@ -127,13 +128,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
             aux = torch.zeros((), dtype=torch.float32, device=dev)
             mbs = {k: v.reshape(A, B // A, *v.shape[1:])
                    for k, v in batch.items()}
-            for i in range(A):
-                lm_, am, g = grad_fn(params, {k: v[i]
-                                              for k, v in mbs.items()})
-                acc = [(ga.float() + gi.float()).to(acc_dtype)
-                       for ga, gi in zip(acc, g)]
-                del g
-                loss, aux = loss + lm_, aux + am
+            # on meta under launch/cost.py's count, one microbatch counted
+            # for all: each runs the same operations on the same shapes
+            with cost.repeat(batch["tokens"], A) as runs:
+                for i in range(runs):
+                    lm_, am, g = grad_fn(params, {k: v[i]
+                                                  for k, v in mbs.items()})
+                    acc = [(ga.float() + gi.float()).to(acc_dtype)
+                           for ga, gi in zip(acc, g)]
+                    del g
+                    loss, aux = loss + lm_, aux + am
             grads = [g.float() / A for g in acc]
             del acc
             loss, aux = loss / A, aux / A
@@ -189,3 +193,8 @@ def abstract_train_state(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig) -> dict:
     ap = get_model(cfg).abstract_params()
     return {"params": ap, "opt": adamw.abstract_opt_state(ap, opt_cfg),
             "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def train_state_axes(cfg: ArchConfig) -> dict:
+    pa = get_model(cfg).params_axes()
+    return {"params": pa, "opt": adamw.opt_state_axes(pa), "step": ()}

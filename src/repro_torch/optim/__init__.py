@@ -1,7 +1,7 @@
 from repro_torch.optim.adamw import (
     AdamWConfig, abstract_opt_state, apply_updates, global_norm, init_opt_state,
-    schedule,
+    opt_state_axes, schedule,
 )
 
 __all__ = ["AdamWConfig", "abstract_opt_state", "apply_updates", "global_norm",
-           "init_opt_state", "schedule"]
+           "init_opt_state", "opt_state_axes", "schedule"]

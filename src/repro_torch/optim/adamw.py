@@ -68,6 +68,11 @@ def abstract_opt_state(abstract_params: Any, cfg: AdamWConfig) -> dict:
             "count": torch.empty((), dtype=torch.int32, device="meta")}
 
 
+def opt_state_axes(param_axes: Any) -> dict:
+    """Moments shard exactly like their parameters."""
+    return {"m": param_axes, "v": param_axes, "count": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))

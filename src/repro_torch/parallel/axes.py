@@ -1,11 +1,33 @@
-"""Parameter definitions with logical axis names, and their materialisation.
+"""Logical-axis sharding and parameter definitions.
 
-The port's copy of what the models need from ``repro/parallel/axes.py``: a
-``ParamDef`` per parameter tensor (shape, dtype, logical axes, initializer),
-the abstract shape tree, and ``init_params``.  The logical-axis names stay on
-every ``ParamDef`` (``layers``, ``embed``, ``heads``, ``kv_heads``,
-``head_dim``, ``ff``, ``vocab``, ...) so that sharding rules can map them onto
-a device mesh later; on one device nothing reads them.
+The port's copy of ``repro/parallel/axes.py``.  Parameters and activations
+carry *logical* axis names; a per-arch rule table maps them onto the axes of
+a device mesh, so one model definition serves any mesh (single pod
+``(data, model)``, multi-pod ``(pod, data, model)``, or one card).
+
+Logical axes used in the zoo:
+  layers     stacked layer dimension (never sharded; no PP axis in the mesh)
+  batch      global batch                -> ("pod", "data")
+  seq        activation sequence dim     -> None (or "data" for SP long-context)
+  kv_seq     KV-cache sequence dim       -> None, or "data" for long_500k decode
+  embed      d_model                     -> None, or "data" for FSDP weight shard
+  ff         MLP hidden                  -> "model"
+  heads      attention query heads       -> "model"
+  kv_heads   attention KV heads          -> "model" iff divisible, else None
+  head_dim   per-head dim                -> None
+  vocab      vocabulary                  -> "model"
+  experts    MoE expert dim              -> "model"   (expert parallelism)
+  expert_ff  per-expert hidden           -> None (EP already covers "model")
+  state      SSM/RWKV recurrent state    -> None
+  conv       conv kernel width           -> None
+  frames     audio/vision token dim      -> None
+
+The port has no partitioner: ``PartitionSpec`` and ``NamedSharding`` here
+are records of where each leaf would live on a mesh (``launch/mesh.py``)
+and what a device holds of it, which the dry run (``launch/dryrun.py``)
+reads.  A ``ParamDef`` per parameter tensor (shape, dtype, logical axes,
+initializer) is the single source of truth for the abstract shape tree,
+the axes tree and ``init_params``.
 
 Parameter trees are nested dicts whose leaves are ``ParamDef``s (or, once
 materialised, tensors).  Leaves are visited in sorted-key order, the order in
@@ -16,12 +38,187 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
 # the seed of leaf i is mixed from (seed, i) with this odd constant
 _SEED_MIX = 0x9E3779B97F4A7C15
+
+# ---------------------------------------------------------------------------
+# Rule tables
+# ---------------------------------------------------------------------------
+
+# Default rules for a (data, model) or (pod, data, model) mesh.  Values may be a
+# mesh-axis name, a tuple of mesh-axis names, or None (replicated).
+DEFAULT_RULES: dict[str, Any] = {
+    "layers": None,
+    "batch": ("pod", "data"),
+    "seq": None,
+    "kv_seq": None,
+    "embed": None,
+    "ff": "model",
+    "heads": "model",
+    "heads_x_dim": "model",  # fused (heads*head_dim) projections (rwkv/mamba d_inner)
+    "kv_heads": "model",
+    "head_dim": None,
+    "vocab": "model",
+    "experts": "model",
+    "expert_ff": None,
+    "state": None,
+    "conv": None,
+    "frames": None,
+}
+
+
+def make_rules(
+    *,
+    fsdp: bool = False,
+    shard_kv_heads: bool = True,
+    sequence_parallel: bool = False,
+    overrides: Mapping[str, Any] | None = None,
+) -> dict[str, Any]:
+    """Build a rule table.
+
+    fsdp: additionally shard the ``embed`` dim of weights over the data axes
+      (ZeRO-3 / FSDP style).
+    shard_kv_heads: disable for archs whose kv_heads don't divide the model
+      axis (replicating KV is cheaper for GQA than padding).
+    sequence_parallel: shard kv_seq over every mesh axis (long-context decode
+      where batch == 1 cannot use the data axis).
+    """
+    rules = dict(DEFAULT_RULES)
+    if fsdp:
+        rules["embed"] = ("pod", "data")
+    if not shard_kv_heads:
+        rules["kv_heads"] = None
+    if sequence_parallel:
+        rules["kv_seq"] = ("pod", "data", "model")
+        rules["batch"] = None
+    if overrides:
+        rules.update(overrides)
+    return rules
+
+
+class PartitionSpec(tuple):
+    """Where each dimension of a leaf lives on a mesh, as JAX's ``P``: one
+    entry per dimension, None (replicated), a mesh-axis name, or a tuple of
+    names (sharded over their product).  As ``P`` does, a tuple of one
+    name becomes the name and an empty tuple None."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, (
+            (p[0] if len(p) == 1 else p or None) if isinstance(p, tuple)
+            else p for p in parts))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _mesh_axes(mesh) -> set[str]:
+    return set(mesh.axis_names)
+
+
+def _resolve_entry(entry: Any, present: set[str]) -> Any:
+    """Drop mesh axes that don't exist on this mesh (e.g. 'pod' on single-pod)."""
+    if entry is None:
+        return None
+    if isinstance(entry, str):
+        return entry if entry in present else None
+    kept = tuple(a for a in entry if a in present)
+    if not kept:
+        return None
+    return kept if len(kept) > 1 else kept[0]
+
+
+def logical_to_spec(axes: Sequence[str | None], rules: Mapping[str, Any],
+                    mesh) -> PartitionSpec:
+    """Map a tuple of logical axis names to a PartitionSpec for ``mesh``
+    (anything with ``axis_names``)."""
+    present = _mesh_axes(mesh)
+    used: set[str] = set()
+    parts = []
+    for name in axes:
+        if name is None:
+            parts.append(None)
+            continue
+        entry = _resolve_entry(rules.get(name), present)
+        # A mesh axis may appear at most once in a PartitionSpec.
+        if entry is None:
+            parts.append(None)
+        elif isinstance(entry, str):
+            if entry in used:
+                parts.append(None)
+            else:
+                used.add(entry)
+                parts.append(entry)
+        else:
+            fresh = tuple(a for a in entry if a not in used)
+            used.update(fresh)
+            parts.append(fresh if fresh else None)
+    return PartitionSpec(*parts)
+
+
+def _is_axes(x: Any) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def _map_axes(fn: Callable, tree: Any) -> Any:
+    """Apply ``fn`` to every logical-axes tuple of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_axes(fn, v) for k, v in tree.items()}
+    if not _is_axes(tree):
+        raise TypeError(f"an axes tree holds dicts and tuples of axis "
+                        f"names, got {tree!r}")
+    return fn(tree)
+
+
+def tree_spec(axes_tree: Any, rules: Mapping[str, Any], mesh) -> Any:
+    """Map a tree of logical-axis tuples to a tree of PartitionSpecs."""
+    return _map_axes(lambda axes: logical_to_spec(axes, rules, mesh),
+                     axes_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A PartitionSpec bound to a mesh (``launch.mesh.Mesh``): what each
+    device holds of a leaf."""
+    mesh: Any
+    spec: PartitionSpec
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """One device's block of a leaf of ``shape``: every sharded
+        dimension divided by the product of its mesh axes' sizes, rounded
+        up (a ragged last block is padded to the others' size)."""
+        sizes = dict(self.mesh.shape)
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        out = []
+        for n, part in zip(shape, spec):
+            names = () if part is None else \
+                (part,) if isinstance(part, str) else part
+            split = math.prod(sizes[a] for a in names)
+            out.append(-(-n // split))
+        return tuple(out)
+
+    def shard_bytes(self, t: torch.Tensor) -> int:
+        """Bytes of one device's block of tensor ``t`` (meta or real)."""
+        return math.prod(self.shard_shape(t.shape)) * t.element_size()
+
+
+def tree_sharding(axes_tree: Any, rules: Mapping[str, Any], mesh) -> Any:
+    """Same as tree_spec but returns NamedShardings bound to ``mesh``."""
+    return _map_axes(
+        lambda axes: NamedSharding(mesh, logical_to_spec(axes, rules, mesh)),
+        axes_tree)
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+# fill(out, ParamDef, torch.Generator): how init_params draws a leaf (_fill)
+Initializer = Callable[..., None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +281,11 @@ def abstract_params(defs: Any, default_dtype: torch.dtype) -> Any:
     dtypes, no storage."""
     return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype or default_dtype,
                                           device="meta"), defs)
+
+
+def params_axes(defs: Any) -> Any:
+    """The tree of each parameter's logical axes."""
+    return tree_map(lambda d: d.axes, defs)
 
 
 def param_numel(defs: Any) -> int:

@@ -917,3 +917,50 @@ def test_compression_on_the_card_equals_the_cpu(dev, dtype):
     summed, resid = cz.compressed_psum(g.to(dev))
     assert torch.equal(summed, deq)     # quantised in float32: the same q
     assert torch.equal(resid, cz.compress(g.to(dev).float())[2])
+
+
+DRYRUN_SMOKE = [("stablelm-1.6b", "train"), ("rwkv6-1.6b", "train"),
+                ("zamba2-1.2b", "prefill"), ("zamba2-1.2b", "decode"),
+                ("deepseek-moe-16b", "decode")]
+
+
+@pytest.mark.parametrize("arch,kind", DRYRUN_SMOKE)
+def test_cost_count_on_the_card_equals_launch_counts(dev, arch, kind):
+    """launch/cost.py's counting mode around a smoke cell's step on the
+    card: its kernel launches equal ops.launch_counts() and the dry run's
+    on meta, and its FLOPs the dry run's."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_arch, smoke_reduce
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.launch.mesh import one_card_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.steps import init_train_state
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(smoke_reduce(get_arch(arch)), accum_steps=2)
+    shape = {"train": SHAPES["train_4k"], "prefill": SHAPES["prefill_32k"],
+             "decode": SHAPES["decode_32k"]}[kind]
+    shape = dataclasses.replace(shape, seq_len=64, global_batch=4)
+    cell, meta = dryrun.trace_cell(cfg, shape, one_card_mesh())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1 if kind == "decode"
+                                               else 64),
+                           generator=gen, dtype=torch.int32, device=dev)
+    model = get_model(cfg)
+    if kind == "train":
+        args = (init_train_state(cfg, 0, adamw.AdamWConfig(), device=dev),
+                {"tokens": tokens})
+    elif kind == "prefill":
+        args = (model.init(0, device=dev), {"tokens": tokens})
+    else:
+        args = (model.init(0, device=dev), model.init_cache(4, 64, device=dev),
+                tokens, torch.full((4,), 63, dtype=torch.int32, device=dev))
+    assert cost.tree_bytes(args) == cost.tree_bytes(cell["args"])
+    ops.reset_launch_counts()
+    real = cost.count(cell["fn"], *args)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert any(launches.values())
+    for k in ops.KERNELS:
+        assert real["kernels"][k]["launches"] == launches[k] == \
+            meta["kernels"][k]["launches"], k
+    assert real["flops"] == meta["flops"]
