@@ -8,8 +8,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
   device   the card's name and power limit (nvidia-smi), torch and nvcc
   build    nvcc-builds the CUDA kernels from src/repro_torch/kernels/csrc;
            records each attention, forest and scan kernel's registers and
-           spills (ptxas -v; fails unless all 18 forest instances and the
-           rwkv6 instance of each head_dim, in both dtypes, are there) and
+           spills (ptxas -v; fails unless all 18 forest instances, the
+           rwkv6 instance of each head_dim in both dtypes and the 32
+           attention instances (head_dims 32, 64, 128, 160) are there, or
+           if the bf16 flash instance at head_dim 160 spills) and
            the tensor-core
            instructions (HMMA/HGMMA) cuobjdump finds in the bf16 flash and
            SSD kernels' SASS, and fails if it finds none in either
@@ -42,29 +44,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
            bf16 (2e-3 / 2e-2): flash at nemo's and zamba2's prefill shapes,
            a ragged S, a window with D=64, a right-aligned non-causal
            case, whisper's encoder (S = Skv = 1500, D=64, non-causal),
-           cross-attention to fewer keys than queries and qwen3's group of
-           16; decode at both serving caches, with ragged kv_len, with a
-           window, at qwen3's group of 16 and against whisper's 1500-row
-           static cross cache.  Times the kernel, its plain version and
-           PyTorch's scaled_dot_product_attention (a yardstick only) by
-           CUDA events, and the kernel's own device time under
-           torch.profiler
+           cross-attention to fewer keys than queries, qwen3's group of
+           16 and stablelm-12b's prefill (head_dim 160); decode at both
+           serving caches, with ragged kv_len, with a window, at qwen3's
+           group of 16, against whisper's 1500-row static cross cache and
+           at stablelm-12b's last step (head_dim 160).  Times the kernel,
+           its plain version and PyTorch's scaled_dot_product_attention (a
+           yardstick only) by CUDA events, and the kernel's own device time
+           under torch.profiler
   serve_parity
            the smoke-reduced mistral-nemo-12b (float32, TF32 off): prefill
            2x16 then 8 greedy decode steps on the card through the kernels,
            on the card through the plain versions and on the CPU through
            the plain versions: every attention call within 1e-4 of its
            plain version, tokens equal, logits within 4x the card-plain vs
-           CPU gap
-  serve    mistral-nemo-12b at full width and depth, bf16, seeded weights:
-           4 requests of 1024 prompt tokens, 64 generated each (one prefill,
-           63 decode steps), through launch/serve.py's generate; exactly 40
-           flash and 2,520 decode launches; the same tokens teacher-forced
+           CPU gap; the same for stablelm-12b's smoke config at 2 layers
+           with head_dim 160 put back
+  serve    mistral-nemo-12b at full width, its depth cut 40 -> 20 layers
+           (SERVE_DEPTH), bf16, seeded weights: 4 requests of 1024 prompt
+           tokens, 64 generated each (one prefill, 63 decode steps), through
+           launch/serve.py's generate; exactly 20 flash and 1,260 decode
+           launches; the same tokens teacher-forced
            through the plain versions on the card; a second run with every
            attention call held to its plain version on the same inputs
            (2e-2); a plain-vs-plain chunking control and layer 0's softmax
            saturation; prefill s, decode tok/s, peak memory, and the decode
            loop's idle share under torch.profiler
+  serve_stablelm12b
+           stablelm-12b (head_dim 160) whole, bf16, seeded weights, serve's
+           traffic through generate: exactly 40 flash and 2,520 decode
+           launches, finite logits, token ids in range; a second run with
+           every attention call held to its plain version (2e-2; a row
+           where they disagree is settled in float64); weights and peak
+           memory, prefill s, decode tok/s and 16 profiled decode steps
   scan_kernels
            the RWKV6 and Mamba2 scan kernels against their plain versions in
            float32 and bf16 (y 5e-3 / 5e-2, the float32 state 1e-3): the
@@ -84,10 +96,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
            on card-kernel, card-plain and CPU, logits within 4x the
            card-plain vs CPU gap
   serve_rwkv6, serve_zamba2
-           each model at full width and depth, bf16, seeded weights, the
-           traffic of serve (4 x (1024 + 64) tokens) through generate;
-           exactly 24 rwkv6_scan launches, and 38 mamba2_ssd + 7 flash + 441
-           decode launches; the same tokens teacher-forced through the plain
+           each model at full width, its depth cut to half (SERVE_DEPTH:
+           rwkv6 24 -> 12, zamba2 38 -> 18 layers, three periods), bf16,
+           seeded weights, the traffic of serve (4 x (1024 + 64) tokens)
+           through generate; exactly 12 rwkv6_scan launches, and 18
+           mamba2_ssd + 3 flash + 189 decode launches; the same tokens
+           teacher-forced through the plain
            versions (the logit gap reported; tokens held where the top-2
            margin exceeds twice it); a second run with every kernel call held
            to its plain version (bf16 tolerances); prefill s, decode tok/s,
@@ -99,11 +113,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
            gates, zero at init, opened to 0.5) and whisper-large-v3, with
            seeded media (normal x 0.02) for the last two
   serve_moe, serve_qwen3, serve_vlm, serve_whisper
-           deepseek-moe-16b (full depth), qwen3-moe-235b-a22b (4 of 94
-           layers), llama-3.2-vision-90b (10 of 100 layers: two periods of
-           four self blocks and a cross block; gates opened, 1024 seeded
-           media tokens a request) and whisper-large-v3 (full depth, 1500
-           seeded frames and a 64-token prompt a request) at full width,
+           deepseek-moe-16b (14 of 28 layers), qwen3-moe-235b-a22b (4 of
+           94 layers), llama-3.2-vision-90b (10 of 100 layers: two periods
+           of four self blocks and a cross block; gates opened, 1024 seeded
+           media tokens a request) and whisper-large-v3 (16 of 32 decoder
+           layers, the 32 encoder layers whole; 1500 seeded frames and a
+           64-token prompt a request) at full width,
            bf16, seeded weights, the traffic of serve: exactly the derived
            flash and decode launches (28 / 1,764; 4 / 252; 10 / 630; 96 /
            4,032); the same
@@ -114,13 +129,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
            share and device operations per step; for MoE the (token,
            expert) pairs a prefill drops at capacity_factor 1.25
   cv       the paper's §4.1.3 table on the card: cross_validate of each of
-           the six models (k = 10, max_n = 12000) on the map dataset of
+           the six models (k = 5, max_n = 12000) on the map dataset of
            fit's 1000-node trace, on the card and on the CPU on the same
            rows: the forest family's metrics equal, GLM's and N.N.'s within
            0.005; time_ms per model, the GLM and N.N. fits' share of the
            card's CV time and the device operations of one fit of each
            (torch.profiler); forest_infer launched
-  sweep    the §5 fleet sweep at 300 nodes (fifo and atlas-fifo x 1 seed
+  sweep    the §5 fleet sweep at 150 nodes (fifo and atlas-fifo x 1 seed
            x baseline and kitchen_sink, map_heavy, per-node hazard) four
            times: serial on the card, broker on the card with a model
            registry, a 2-worker spawn process pool on the card, and serial
@@ -137,7 +152,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
            run_search on the card and on the CPU: equal results apart from
            provenance, no invariant violation
   serve_async
-           the sweep's baseline cells (fifo and atlas-fifo x 1 seed, 1000
+           the sweep's baseline cells (fifo and atlas-fifo x 1 seed, 500
            nodes, map_heavy, per-node hazard) four times: the broker
            executor, the async executor (an AsyncBroker on the card), the
            async executor under benchmarks/chaos_smoke.py's fault shape with
@@ -179,20 +194,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
   train_kernels
            flash_attention, rwkv6_scan and mamba2_ssd under autograd at
            the training microbatches' shapes, bf16 (attention also at the
-           vlm's and whisper's non-causal cross-attention and whisper's
-           1500 x 1500 encoder): each Function's forward torch.equal to
+           vlm's and whisper's non-causal cross-attention, whisper's
+           1500 x 1500 encoder and stablelm-12b's head geometry at head_dim
+           160): each Function's forward torch.equal to
            the bare kernel and within the kernel's tolerance of the plain
            version, its gradients within TRAIN_GRAD_TOL of autograd
            through the plain version; times of forward + backward, the
            plain version's and SDPA's
   train_step, train_step_rwkv6, train_step_zamba2, train_step_moe,
   train_step_whisper
-           stablelm-1.6b (8 steps), rwkv6-1.6b, zamba2-1.2b and
-           whisper-large-v3 (3 steps; 1500 seeded frames a sequence; from
-           the reference's draw with the attention fan-in fixed, the first
-           gradient norm by depth from both draws recorded) at full width
-           and depth, deepseek-moe-16b at full width cut to 4 layers (3
-           steps, bf16 moments), through make_train_step:
+           stablelm-1.6b (8 steps) and rwkv6-1.6b (3 steps) at full width
+           and depth; zamba2-1.2b (18 of 38 layers) and whisper-large-v3
+           (16 of 32 encoder and decoder layers; 1500 seeded frames a
+           sequence; from the reference's draw with the attention fan-in
+           fixed, the first gradient norm by depth from both draws
+           recorded) at full width, 2 steps each; deepseek-moe-16b at full
+           width cut to 4 layers (3 steps, bf16 moments); through
+           make_train_step:
            launches equal to the derived counts, every gradient leaf
            finite and not all zero, the first loss within TRAIN_LOSS_RTOL
            of the plain versions'; losses on the stream and on a fixed
@@ -207,7 +225,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
            within TRAIN_LOSS_RTOL
   train_elastic
            repro_torch.launch.train.main on stablelm-1.6b at full width
-           (ATLAS on): committed steps, launches, the bytes and seconds of
+           cut to 4 layers (ATLAS on; --layers 4, for the time limit: each
+           checkpoint is ~6 GB instead of 16.4): committed steps,
+           launches, the bytes and seconds of
            each checkpoint save and restore, a restore with its digests
            checked
   compression
@@ -215,11 +235,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
            compressed_psum (one process) on the card torch.equal to the
            CPU, float32 and bf16
 
+  examples the five examples/torch_*.py (quickstart, hadoop_sim,
+           fleet_sweep, serve_atlas, chaos_train) on the card, each a
+           process of its own, all at once, at small arguments, while the
+           dry run's grid finishes: every exit code 0 and each one's result
+           line printed
   dryrun   launch/dryrun.py's grid on pod16x16 (40 cells), traced on
            meta in DRYRUN_JOBS spawned processes while the training phases
-           run: no cell in error, skipped exactly the long_500k cells of the
-           full-attention archs; each cell's trace_s, FLOPs, temporaries and
-           kernel refusals
+           and the examples run: no cell in error or refused (32 ok),
+           skipped exactly the long_500k cells of the full-attention archs;
+           each cell's trace_s, FLOPs and temporaries
   dryrun_cells
            DRYRUN_CELLS on one card (mesh h100x1), each dry-run first (its
            global batch cut to a power of two where the whole step does not
@@ -298,7 +323,8 @@ PROFILED_STEPS = 16
 # "zamba2" zamba2's shared attention in prefill, "whisper_encoder"
 # whisper-large-v3's encoder over 30 s of audio, "cross" cross-attention to
 # fewer keys than queries (llama-3.2-vision's 1024 media tokens, a
-# 1088-token text), "qwen3" qwen3-moe's group of 16
+# 1088-token text), "qwen3" qwen3-moe's group of 16, "stablelm12b"
+# stablelm-12b's prefill (head_dim 160)
 FLASH_CASES = {"main": (4, 1024, 1024, 32, 8, 128, True, 0),
                "zamba2": (4, 1024, 1024, 32, 32, 64, True, 4096),
                "ragged": (4, 1000, 1000, 32, 8, 128, True, 0),
@@ -306,22 +332,32 @@ FLASH_CASES = {"main": (4, 1024, 1024, 32, 8, 128, True, 0),
                "right_aligned": (4, 256, 1024, 32, 8, 128, False, 0),
                "whisper_encoder": (4, 1500, 1500, 20, 20, 64, False, 0),
                "cross": (4, 1088, 1024, 64, 8, 128, False, 0),
-               "qwen3": (4, 1024, 1024, 64, 4, 128, True, 0)}
+               "qwen3": (4, 1024, 1024, 64, 4, 128, True, 0),
+               "stablelm12b": (4, 1024, 1024, 32, 8, 160, True, 0)}
 # (B, Smax, H, Hkv, D, window, kv_len); "main" is nemo's last decode
 # step's, "zamba2" zamba2's (its W = 1088-row window cache, full),
 # "qwen3" qwen3-moe's last step (16 query heads per kv head, the decode
 # kernel's DECODE_MAX_GROUP), "cross_static" whisper's static cross cache
-# of 1500 encoder frames (kv_len = all of them)
+# of 1500 encoder frames (kv_len = all of them), "stablelm12b"
+# stablelm-12b's last step (head_dim 160)
 DECODE_CASES = {"main": (4, 1088, 32, 8, 128, 0, (1088,) * 4),
                 "zamba2": (4, 1088, 32, 32, 64, 4096, (1088,) * 4),
                 "ragged": (4, 1088, 32, 8, 128, 0, (1025, 1088, 1, 530)),
                 "window": (4, 1088, 32, 8, 128, 256, (1088, 700, 256, 3)),
                 "qwen3": (4, 1088, 64, 4, 128, 0, (1088,) * 4),
-                "cross_static": (4, 1500, 20, 20, 64, 0, (1500,) * 4)}
+                "cross_static": (4, 1500, 20, 20, 64, 0, (1500,) * 4),
+                "stablelm12b": (4, 1088, 32, 8, 160, 0, (1088,) * 4)}
 # the attention cases of the moe, vlm and audio families, reported in the
 # kernels line beside "main" and "zamba2"
 FAMILY_FLASH_CASES = ("whisper_encoder", "cross", "qwen3")
 FAMILY_DECODE_CASES = ("qwen3", "cross_static")
+# stablelm-12b, served whole through generate with serve's traffic: its
+# head_dim, 160, is the one both attention kernels took last; the
+# serve_parity phase adds its smoke config at 2 layers with head_dim 160
+# put back (smoke_reduce sets 32)
+HEAD160_ARCH = "stablelm-12b"
+HEAD160_CASE = "stablelm12b"
+HEAD160_SMOKE = dict(n_layers=2, head_dim=160)
 ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # tests/test_kernels.py:17-19
 # in a model's held run: the most output rows of one attention call that
 # may disagree with the plain version, each then settled in float64
@@ -330,14 +366,20 @@ ATTN_KERNELS = ("flash_attention", "decode_attention")
 # the CUDA kernels' names (a profiler trace's kernel names contain them)
 KERNEL_KINDS = ("flash_attention", "decode_attention", "rwkv6_scan",
                 "mamba2_ssd")
-# the moe, vlm and audio families, each served with serve's
-# traffic: deepseek-moe-16b and whisper-large-v3 whole; qwen3-moe (94
-# layers, 470 GB) and llama-3.2-vision-90b (100 layers, 175 GB) at full
-# width with the depth cut to fit one card and the time limit (vlm: two
-# periods of four self blocks and one cross block)
+# the moe, vlm and audio families, each served with serve's traffic
 FAMILY_ARCHS = ("deepseek-moe-16b", "qwen3-moe-235b-a22b",
                 "llama-3.2-vision-90b", "whisper-large-v3")
-FAMILY_DEPTH = {"qwen3-moe-235b-a22b": 4, "llama-3.2-vision-90b": 10}
+# the served models' depths where they are cut, at full width: qwen3-moe
+# (94 layers, 470 GB) and llama-3.2-vision-90b (100 layers, 175 GB) to fit
+# one card and the time limit (vlm: two periods of four self blocks and one
+# cross block); mistral-nemo-12b, rwkv6-1.6b, zamba2-1.2b (three periods of
+# 6), deepseek-moe-16b and whisper-large-v3's decoder (its encoder stays
+# whole) to half when an H100 run of the whole script passed its 1,200 s
+# limit (they were served whole in 170-205 s of it); stablelm-12b
+# (serve_stablelm12b) stays whole
+SERVE_DEPTH = {"mistral-nemo-12b": 20, "rwkv6-1.6b": 12, "zamba2-1.2b": 18,
+               "deepseek-moe-16b": 14, "qwen3-moe-235b-a22b": 4,
+               "llama-3.2-vision-90b": 10, "whisper-large-v3": 16}
 # whisper's decoder prompt: 64 tokens, with the 64 generated within its
 # 448-token text context (each request also carries 1500 frames, 30 s of
 # audio); the other families take serve's 1024
@@ -382,7 +424,8 @@ STATE_TOL = 1e-3                                 # the float32 final state
 SCAN_CUT = 77            # where a sequence is cut to carry the state
 
 # the ATLAS phases after serving: the paper's predictor study and §5 sweep
-CV_FOLDS, CV_MAX_N = 10, 12000
+# folds cut from the paper's 10 to 5 for the time limit
+CV_FOLDS, CV_MAX_N = 5, 12000
 CV_FOREST = ("Tree", "CTree", "R.F.", "Boost")   # bitwise card = CPU
 CV_DENSE_TOL = 0.005                             # GLM, N.N.: float sums
 # seeds cut from 2 to 1 for time: at 1000 nodes with per-node hazard the
@@ -391,21 +434,27 @@ CV_DENSE_TOL = 0.005                             # GLM, N.N.: float sums
 # script neared its time limit (1,065 s of 1,200 on an H100), so the fleet
 # is cut to SWEEP_FLEET nodes too (the phase 310 s -> 133 s at 500 nodes;
 # cut to 300 when the moe and audio training phases took the script to
-# 1,058 s)
-SWEEP_FLEET = 300
+# 1,058 s; to 150 when an H100 run of the script passed 1,200 s: at 100
+# it took no less, 72 s against 59, since a smaller fleet takes the same
+# workload longer and scores about as many rows)
+SWEEP_FLEET = 150
 SWEEP = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
              scenarios=("baseline", "kitchen_sink"), workloads=("map_heavy",),
              fleet_sizes=(SWEEP_FLEET,), hazard="per-node")
 SWEEP_WORKERS = 2
 SWEEP_KEYS = ("spec", "cells", "aggregates", "rankings")
-# serve_async: the sweep's baseline half at FLEET nodes (kitchen_sink's
-# ATLAS cell stays in sweep only), served four ways.  Seeds cut from 2 to 1
-# for time: at 2 seeds the four runs took 39-54 s each on the card (1.87 M
-# scored rows, 12,856 demand calls) and the phase 144 s (PERF.md); the
-# fleet size is not cut
+# serve_async: the sweep's baseline half at SERVE_ASYNC_FLEET nodes
+# (kitchen_sink's ATLAS cell stays in sweep only), served four ways.  Seeds
+# cut from 2 to 1 for time: at 2 seeds the four runs took 39-54 s each on
+# the card (1.87 M scored rows, 12,856 demand calls) and the phase 144 s
+# (PERF.md); the fleet cut from FLEET to 500 nodes when an H100 run of the
+# script passed 1,200 s (at 1000 nodes the card's three runs took 24-39 s
+# each, at 500 11-19 s, and obs runs this spec twice more; at 300 they
+# took as long as at 500)
+SERVE_ASYNC_FLEET = 500
 SERVE_ASYNC = dict(schedulers=("fifo", "atlas-fifo"), seeds=1,
                    scenarios=("baseline",), workloads=("map_heavy",),
-                   fleet_sizes=(FLEET,), hazard="per-node")
+                   fleet_sizes=(SERVE_ASYNC_FLEET,), hazard="per-node")
 # the fault shape of benchmarks/chaos_smoke.py's parity plan; the request
 # timeout is sized from the clean async run's longest wait (at least
 # TIMEOUT_OVER_WAIT times it), the deadline is FAULT_BOUNDS' largest
@@ -435,13 +484,16 @@ OBS_ATTEMPTS = 3
 OBS_PAIRS = {"ndjson": 9, "live_tcp": 3}
 
 # training: launch/train.py's default global batch and sequence; the train
-# steps run at full width and depth (stablelm-1.6b 8 steps, the others 3,
-# cut for time), but deepseek-moe-16b at TRAIN_DEPTH: 1 dense and 3 MoE
-# layers (2.3 B parameters at ~20 bytes each inside a step, ~45 GB; all 28
-# layers would be ~330 GB); the kernels' training shapes are those steps'
-# microbatches, and the vlm's cross-attention at llama-3.2-vision-90b's
-# (accum 16: one sequence on 1024 media tokens), which the card cannot
-# train whole: (B, S, Skv, H, Hkv, D, causal, window) for attention,
+# steps run at full width (stablelm-1.6b 8 steps, the others 3 or 2:
+# TRAIN_STEPS, cut for time), at full depth but where TRAIN_DEPTH cuts it:
+# deepseek-moe-16b to 1 dense and 3 MoE layers (2.3 B parameters at ~20
+# bytes each inside a step, ~45 GB; all 28 layers would be ~330 GB),
+# zamba2-1.2b and whisper-large-v3 to about half; the kernels' training
+# shapes are those steps' microbatches, and the vlm's cross-attention at
+# llama-3.2-vision-90b's (accum 16: one sequence on 1024 media tokens),
+# which the card cannot train whole, and stablelm-12b's head geometry (32 heads on 8, head_dim
+# 160) at its microbatch (accum 8: 2 of the 16 sequences):
+# (B, S, Skv, H, Hkv, D, causal, window) for attention,
 # (B, S, H, Dh) for rwkv6, (B, S, H, P, N) for mamba2
 TRAIN_ARCH = "stablelm-1.6b"
 TRAIN_ARCHS = ("stablelm-1.6b", "rwkv6-1.6b", "zamba2-1.2b",
@@ -452,16 +504,23 @@ TRAIN_PHASE = {"stablelm-1.6b": "train_step",
                "deepseek-moe-16b": "train_step_moe",
                "whisper-large-v3": "train_step_whisper"}
 TRAIN_BATCH, TRAIN_SEQ = 16, 256
-TRAIN_STEPS = {"stablelm-1.6b": 8, "rwkv6-1.6b": 3, "zamba2-1.2b": 3,
-               "deepseek-moe-16b": 3, "whisper-large-v3": 3}
-TRAIN_DEPTH = {"deepseek-moe-16b": 4}
+# zamba2-1.2b and whisper-large-v3 (6-11 s a step) cut from 3 steps to 2
+# when an H100 run of the whole script passed its 1,200 s limit
+TRAIN_STEPS = {"stablelm-1.6b": 8, "rwkv6-1.6b": 3, "zamba2-1.2b": 2,
+               "deepseek-moe-16b": 3, "whisper-large-v3": 2}
+# zamba2-1.2b (three periods of 6) and whisper-large-v3 (16 encoder and 16
+# decoder layers) cut to about half when an H100 run of the whole script
+# passed its 1,200 s limit (their steps took 6.0-11.1 s whole)
+TRAIN_DEPTH = {"deepseek-moe-16b": 4, "zamba2-1.2b": 18,
+               "whisper-large-v3": 16}
 FAN_IN_FIXED = ("whisper-large-v3",)
 TRAIN_FLASH_CASES = {"stablelm": (8, 256, 256, 32, 32, 64, True, 0),
                      "zamba2": (2, 256, 256, 32, 32, 64, True, 4096),
                      "vlm_cross": (1, 256, 1024, 64, 8, 128, False, 0),
                      "whisper_encoder": (2, 1500, 1500, 20, 20, 64, False,
                                          0),
-                     "whisper_cross": (2, 256, 1500, 20, 20, 64, False, 0)}
+                     "whisper_cross": (2, 256, 1500, 20, 20, 64, False, 0),
+                     "stablelm12b": (2, 256, 256, 32, 8, 160, True, 0)}
 # train_vlm: the smoke-reduced llama-3.2-vision-90b in bf16 with its gates
 # opened, at the full config's accum_steps, with bf16 and with float32
 # media (the data stream's default dtype)
@@ -486,25 +545,46 @@ TRAIN_LOSS_RTOL = 5e-3
 # this many encoder and decoder layers each), from two inits
 # (_grad_norms_by_init)
 WITNESS_DEPTHS = {"stablelm-1.6b": (2, 4, 8, 16, 24),
-                  "whisper-large-v3": (1, 8, 32)}
+                  "whisper-large-v3": (1, 8, 16)}
 # the archs whose train_step runs from the reference's draw with its
 # attention projections at their full fan-in (_fan_in_d_model): from the
 # reference's own init whisper-large-v3's first gradient norm is ~1e27 at
 # full depth, whose square overflows float32 in AdamW's clip
-# train_elastic: launch/train.py's flags for the phase
-ELASTIC = dict(steps=8, checkpoint_every=8)
+# train_elastic: launch/train.py's flags for the phase; the depth cut to
+# 4 of 24 layers when an H100 run of the script passed 1,200 s (at full
+# depth each checkpoint is 16.4 GB: two saves of ~24 s and four restores
+# of ~10 s made the phase 115 s)
+ELASTIC = dict(steps=8, checkpoint_every=8, layers=4)
 # dryrun: the grid of launch/dryrun.py on pod16x16, DRYRUN_JOBS cells at a
 # time in spawned processes, traced while the training phases run;
 # dryrun_cells: these cells on one card (h100x1), each after its own dry
 # run, whole where that run's arguments plus temporaries fit the card's 80
 # GB, else at the largest power-of-two global batch that fits
-DRYRUN_JOBS = 2
+DRYRUN_JOBS = 4
 DRYRUN_CELLS = (("zamba2-1.2b", "long_500k"), ("zamba2-1.2b", "decode_32k"),
                 ("rwkv6-1.6b", "prefill_32k"), ("stablelm-1.6b", "train_4k"))
 # the dry run's peak (arguments + temporaries) against the card's
 # max_memory_allocated: the allocator rounds each block up, the cuBLAS
 # workspace and the autograd engine's buffers are not counted
 DRYRUN_PEAK_TOL = 0.25
+# examples: the five examples/torch_*.py on the card (their default
+# device), each a process of its own, all five at once, at the arguments of
+# tests/test_torch_examples.py (hadoop_sim at --seeds 1 on the paper's
+# workload, fleet_sweep and serve_atlas at their defaults); the line each
+# must print
+EXAMPLES = {"torch_quickstart": ("--steps", "6", "--d-model", "64",
+                                 "--layers", "1", "--vocab", "256",
+                                 "--hosts", "2"),
+            "torch_hadoop_sim": ("--seeds", "1"),
+            "torch_fleet_sweep": (),
+            "torch_serve_atlas": (),
+            "torch_chaos_train": ("--steps", "6", "--hosts", "2")}
+EXAMPLE_MARK = {"torch_quickstart": "loss: ",
+                "torch_hadoop_sim": "== paper claims vs this reproduction",
+                "torch_fleet_sweep": "device=cuda",
+                "torch_serve_atlas": "tok/s on CUDA",
+                "torch_chaos_train": "final_loss"}
+EXAMPLE_TIMEOUT_S = 300
 
 RECORDS: list = []
 _T0 = time.perf_counter()
@@ -544,11 +624,13 @@ def phase_device(torch) -> str:
 
 def phase_build() -> dict:
     """Build the library; each attention, forest and scan kernel's
-    registers and spills from the ptxas report (fails unless all 18 forest
-    and every rwkv6 instance are there), and the tensor-core instructions
+    registers and spills from the ptxas report (fails unless all 18 forest,
+    every rwkv6 and every attention instance, head_dim 160's included, are
+    there, or if the bf16 flash instance at head_dim 160 spills), and the
+    tensor-core instructions
     in the bf16 flash and SSD kernels' SASS (fails if cuobjdump is there
     and finds none in either)."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, attention
     from repro_torch.kernels import recurrence as rk
     t0 = time.perf_counter()
     lib = _build.load()
@@ -566,6 +648,18 @@ def phase_build() -> dict:
     seen = sum("rwkv6_scan_kernel" in m for m in scan_usage)
     check(seen == n_rwkv, f"{n_rwkv} rwkv6 instances (two dtypes), ptxas "
           f"saw {seen}")
+    # flash: two kernels per head dim; decode: two dtypes x three group
+    # buckets per head dim
+    n_attn = len(attention.HEAD_DIMS) * (2 + 2 * 3)
+    check(len(usage) == n_attn, f"{n_attn} attention kernel instances, "
+          f"ptxas saw {len(usage)}")
+    # the bf16 flash instance at head_dim 160 is compiled for one block an
+    # SM so that its 80 accumulator floats a thread stay in registers
+    d160 = {m: u for m, u in usage.items()
+            if "flash_attention_mma_kernelILi160E" in m}
+    check(len(d160) == 1 and not any(u.get("spill_stores", 0)
+                                     for u in d160.values()),
+          f"the bf16 flash kernel at head_dim 160 spills: {d160}")
     tc = _build.tensor_core_instructions()
     names = _build.demangle(set(usage) | set(forest_usage) | set(scan_usage)
                             | set(tc or {}))
@@ -1114,18 +1208,19 @@ def phase_parity(torch, dev):
 
 
 def _device_time(prof) -> dict:
-    """Device time by kind from a torch.profiler trace: {kind: [n, us]}."""
+    """Device time by kind from a torch.profiler trace's raw events (as
+    _serve_trace reads them): {kind: [n, us]}."""
     from torch.autograd import DeviceType
     kinds: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        name = e.name
+        name = e.name()
         kind = next((k for k in ("forest_infer_grouped", "forest_infer")
                      if k in name), "memcpy" if "emcpy" in name else "other")
         n_us = kinds.setdefault(kind, [0, 0.0])
         n_us[0] += 1
-        n_us[1] += e.time_range.elapsed_us()
+        n_us[1] += e.duration_ns() / 1e3
     return kinds
 
 
@@ -1410,16 +1505,17 @@ def _expected_launches(cfg, decode_steps: int) -> dict:
     return {**dict.fromkeys(ops.KERNELS, 0), **want}
 
 
-def _serve_parity(torch, dev, arch: str) -> dict:
-    """One smoke-reduced arch in float32 from the same weights: the card
-    through the kernels, the card through the plain versions and the CPU
-    through the plain versions (see phase_serve_parity)."""
+def _serve_parity(torch, dev, arch: str, **fields) -> dict:
+    """One smoke-reduced arch in float32 from the same weights, ``fields``
+    set on its smoke config (HEAD160_SMOKE): the card through the kernels,
+    the card through the plain versions and the CPU through the plain
+    versions (see phase_serve_parity)."""
     from repro_torch.configs import get_arch, smoke_reduce
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import ShardCtx, get_model
     from repro_torch.parallel.axes import tree_map
-    cfg = smoke_reduce(get_arch(arch))
+    cfg = dataclasses.replace(smoke_reduce(get_arch(arch)), **fields)
     model = get_model(cfg)
     cpu_params = model.init(0, device="cpu")
     _open_gates(cpu_params)
@@ -1455,7 +1551,9 @@ def _serve_parity(torch, dev, arch: str) -> dict:
     check(max(kernel_gap) <= 4 * max(plain_gap) + 1e-4,
           f"{arch} serve_parity: card logits {max(kernel_gap)} from the "
           f"CPU's, the card's plain path {max(plain_gap)}")
-    return {"arch": cfg.name, "prompt": [2, 16], "decode_steps": 8,
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "head_dim": cfg.resolved_head_dim, "prompt": [2, 16],
+            "decode_steps": 8,
             "kernel_call_max_abs_err": call_err,
             "logit_gap_kernels_vs_cpu": kernel_gap,
             "logit_gap_card_plain_vs_cpu": plain_gap,
@@ -1493,10 +1591,14 @@ def phase_serve_parity(torch, dev):
     the kernel run's logits are within four times the gap between the
     card's plain run and the CPU's.  That gap is float32 summation order
     (cuBLAS against the CPU's BLAS) amplified by the smoke model's
-    saturated attention scores, and no kernel is in it."""
+    saturated attention scores, and no kernel is in it.  The same for
+    stablelm-12b's smoke config at 2 layers with its head_dim, 160, put
+    back ("head_dim_160")."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit({"phase": "serve_parity", **_serve_parity(torch, dev, SERVE_ARCH)})
+    emit({"phase": "serve_parity", **_serve_parity(torch, dev, SERVE_ARCH),
+          "head_dim_160": _serve_parity(torch, dev, HEAD160_ARCH,
+                                        **HEAD160_SMOKE)})
 
 
 def phase_family_serve_parity(torch, dev):
@@ -1758,17 +1860,17 @@ def _serve_record(phase, cfg, init_s, weights_gb, peak_gb, res, launches,
 
 
 def phase_serve(torch, dev):
-    """mistral-nemo-12b at full width and depth in bf16, seeded weights on
-    the card: 4 x (1024 prompt + 64 generated) tokens through
+    """mistral-nemo-12b at full width (the depth of SERVE_DEPTH) in bf16,
+    seeded weights on the card: 4 x (1024 prompt + 64 generated) tokens
+    through
     launch/serve.py's generate.  The launch counts are zeroed just before
     and read just after; then the same tokens go through the plain versions
     on the card (teacher-forced); a second run holds every attention call
     against its plain version on the same inputs; a control and the layer-0
     softmax measure how strongly rounding differences are amplified; then
     16 decode steps are profiled."""
-    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    cfg = get_arch(SERVE_ARCH)
+    cfg = _family_config(SERVE_ARCH)
     model, params, prompt, _, init_s, weights_gb = _serve_setup(torch, dev,
                                                                 cfg)
     res, launches, peak_gb = _serve_main_run(torch, dev, cfg, model, params,
@@ -1804,6 +1906,50 @@ def phase_serve(torch, dev):
     per_call = _per_call_ms(record)
     return launches, {k: per_call[k] for k in ("flash_attention",
                                                "decode_attention")}
+
+
+def phase_serve_stablelm12b(torch, dev):
+    """stablelm-12b (head_dim 160) at full width and depth in bf16, seeded
+    weights on the card, serve's traffic (4 x (1024 prompt + 64
+    generated) tokens) through launch/serve.py's generate: the launch
+    counts zeroed just before and read just after, exactly 40 flash and
+    2,520 decode launches, finite logits and token ids in range; a second
+    run holds every attention call against its plain version on the same
+    inputs (2e-2, a disagreeing row settled in float64); then 16 decode
+    steps are profiled.  Weights and peak memory in GB.  Returns the
+    launches and each attention kernel's own device time per call on this
+    path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    cfg = get_arch(HEAD160_ARCH)
+    check(cfg.resolved_head_dim == 160 and cfg.n_layers == 40,
+          f"{cfg.name}: head_dim {cfg.resolved_head_dim}, "
+          f"{cfg.n_layers} layers")
+    model, params, prompt, _, init_s, weights_gb = _serve_setup(torch, dev,
+                                                                cfg)
+    res, launches, peak_gb = _serve_main_run(torch, dev, cfg, model, params,
+                                             prompt)
+    call_err: dict = {}
+    tol = (ATTN_TOL["bfloat16"],)
+    with _held_kernels(torch, call_err, {"flash_attention": tol,
+                                         "decode_attention": tol}):
+        again = serve.generate(model, params, prompt, SERVE_TOKENS,
+                               device=dev)
+    del again["cache"]
+    record = {
+        **_serve_record("serve_stablelm12b", cfg, init_s, weights_gb,
+                        peak_gb, res, launches),
+        "head_dim": cfg.resolved_head_dim,
+        "attention_call_max_abs_err": call_err,
+        "rerun_tokens_equal": bool(np.array_equal(again["tokens"],
+                                                  res["tokens"])),
+        **_profiled_serving(torch, model, params, prompt,
+                            SERVE_PROMPT + SERVE_TOKENS, dev)}
+    emit(record)
+    del params, res, again
+    torch.cuda.empty_cache()
+    per_call = _per_call_ms(record)
+    return launches, {k: per_call[k] for k in ATTN_KERNELS}
 
 
 # ---------------------------------------------------------------- recurrent
@@ -2013,17 +2159,17 @@ def phase_recurrent_serve_parity(torch, dev):
 
 
 def phase_serve_recurrent(torch, dev, arch: str) -> tuple:
-    """``arch`` at full width and depth in bf16, seeded weights on the card,
-    the traffic of phase_serve: the main run (exact launches), the same
+    """``arch`` at full width (the depth of SERVE_DEPTH) in bf16, seeded
+    weights on the card, the traffic of phase_serve: the main run (exact
+    launches), the same
     tokens teacher-forced through the plain versions (the logit gap
     reported, not held: zamba2's shared attention is saturated under the
     reference's init, as nemo's), a second run with every kernel call held
     to its plain version at the bf16 tolerances, and a profiled prefill and
     decode loop."""
-    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     phase = "serve_" + arch.split("-")[0]
-    cfg = get_arch(arch)
+    cfg = _family_config(arch)
     model, params, prompt, _, init_s, weights_gb = _serve_setup(torch, dev,
                                                                 cfg)
     res, launches, peak_gb = _serve_main_run(torch, dev, cfg, model, params,
@@ -2053,12 +2199,12 @@ def phase_serve_recurrent(torch, dev, arch: str) -> tuple:
 
 
 def _family_config(arch: str):
-    """``arch`` at its published widths, with the depth FAMILY_DEPTH cuts
-    it to where one card cannot hold it."""
+    """``arch`` at its published widths, with the depth SERVE_DEPTH cuts
+    it to."""
     from repro_torch.configs import get_arch
     cfg = get_arch(arch)
-    if arch in FAMILY_DEPTH:
-        cfg = dataclasses.replace(cfg, n_layers=FAMILY_DEPTH[arch])
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
     return cfg
 
 
@@ -2193,10 +2339,10 @@ def _device_ops(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
     return {"device_ops": len(events), "wall_s": wall,
-            "device_busy_s": sum(e.time_range.elapsed_us()
-                                 for e in events) / 1e6}
+            "device_busy_s": sum(e.duration_ns() for e in events) / 1e9}
 
 
 def phase_cv(torch, dev, smi, map_data) -> dict:
@@ -2323,7 +2469,8 @@ def phase_sweep(torch, dev, smi) -> dict:
 
 
 def phase_serve_async(torch, dev, smi) -> dict:
-    """The §5 sweep's baseline cells at 1000 nodes and one seed served
+    """The §5 sweep's baseline cells at SERVE_ASYNC_FLEET nodes and one
+    seed served
     four ways: (a) the broker executor, (b) the async executor (an
     AsyncBroker over inproc:// on the card), (c) the async executor under
     CHAOS_PLAN, its timeout sized from (b)'s longest wait, (d) the async
@@ -3168,18 +3315,24 @@ def _fan_in_d_model(cfg, params):
             attn["wo"].mul_(attn["wo"].shape[-3] ** -0.5)   # (L, h, hd, d)
 
 
-def _cut_depth(cfg, params, depth: int):
-    """``cfg`` and ``params`` cut to their first ``depth`` layers (the
-    audio family: ``depth`` encoder and ``depth`` decoder layers)."""
-    from repro_torch.parallel.axes import tree_map
+def _at_depth(cfg, depth: int):
+    """``cfg`` with ``depth`` layers (the audio family: ``depth`` encoder
+    and ``depth`` decoder layers)."""
     if cfg.family == "audio":
-        cut = dataclasses.replace(cfg, n_layers=depth, enc_dec=dataclasses.
-                                  replace(cfg.enc_dec, n_enc_layers=depth))
-        stacks = ("enc_blocks", "dec_blocks")
-    else:
-        cut, stacks = dataclasses.replace(cfg, n_layers=depth), ("blocks",)
-    return cut, {**params, **{k: tree_map(lambda t: t[:depth], params[k])
-                              for k in stacks}}
+        return dataclasses.replace(cfg, n_layers=depth, enc_dec=dataclasses.
+                                   replace(cfg.enc_dec, n_enc_layers=depth))
+    return dataclasses.replace(cfg, n_layers=depth)
+
+
+def _cut_depth(cfg, params, depth: int):
+    """``cfg`` and ``params`` cut to their first ``depth`` layers
+    (_at_depth)."""
+    from repro_torch.parallel.axes import tree_map
+    stacks = (("enc_blocks", "dec_blocks") if cfg.family == "audio"
+              else ("blocks",))
+    return _at_depth(cfg, depth), {
+        **params, **{k: tree_map(lambda t: t[:depth], params[k])
+                     for k in stacks}}
 
 
 def _first_grad_norm(torch, cfg, params, tokens, depth: int,
@@ -3257,7 +3410,7 @@ def _train_config(arch: str):
     from repro_torch.configs import get_arch
     cfg = get_arch(arch)
     if arch in TRAIN_DEPTH:
-        cfg = dataclasses.replace(cfg, n_layers=TRAIN_DEPTH[arch])
+        cfg = _at_depth(cfg, TRAIN_DEPTH[arch])
     return cfg
 
 
@@ -3529,8 +3682,9 @@ def phase_compression(torch, dev) -> dict:
 
 
 def phase_train_elastic(torch, dev) -> tuple:
-    """repro_torch.launch.train.main on TRAIN_ARCH at full width (ATLAS on,
-    the default fail rate) with its checkpoints under a temporary
+    """repro_torch.launch.train.main on TRAIN_ARCH at full width, its depth
+    cut to ELASTIC["layers"] (ATLAS on, the default fail rate) with its
+    checkpoints under a temporary
     directory: every save and restore timed (bytes, seconds) through the
     CheckpointManager the trainer uses; the launch counts zeroed just
     before and read just after; at least ELASTIC["steps"] committed steps
@@ -3567,7 +3721,8 @@ def phase_train_elastic(torch, dev) -> tuple:
         free_gb = shutil.disk_usage(td).free / 1e9
         argv = ["--arch", TRAIN_ARCH, "--full-config", "--steps",
                 str(ELASTIC["steps"]), "--checkpoint-every",
-                str(ELASTIC["checkpoint_every"]), "--checkpoint-dir", td]
+                str(ELASTIC["checkpoint_every"]), "--layers",
+                str(ELASTIC["layers"]), "--checkpoint-dir", td]
         CheckpointManager.save, CheckpointManager.restore = save, restore
         try:
             ops.reset_launch_counts()
@@ -3578,7 +3733,9 @@ def phase_train_elastic(torch, dev) -> tuple:
             CheckpointManager.save = orig_save
             CheckpointManager.restore = orig_restore
         from repro_torch.configs import get_arch
-        want = _train_launches(get_arch(TRAIN_ARCH), out["committed"])
+        want = _train_launches(dataclasses.replace(
+            get_arch(TRAIN_ARCH), n_layers=ELASTIC["layers"]),
+            out["committed"])
         check(launches == want, f"train_elastic: launches {launches}, want "
               f"{want}")
         check(out["committed"] >= ELASTIC["steps"]
@@ -3635,10 +3792,12 @@ def start_dryrun_grid():
 
 
 def phase_dryrun(grid) -> dict:
-    """The pod16x16 grid's records: no cell in error, the skipped cells
-    exactly the long_500k cells of the full-attention archs (the
+    """The pod16x16 grid's records: no cell in error and none refused (a
+    kernel refusing a shape a step gives it; since both attention kernels
+    take stablelm-12b's head_dim 160, every traced cell is ok), the skipped
+    cells exactly the long_500k cells of the full-attention archs (the
     reference's split: 32 traced, 8 skipped); each cell's status, trace_s,
-    FLOPs, temporaries and any kernel refusals."""
+    FLOPs and temporaries."""
     from repro_torch.configs import SHAPES, cell_supported, get_arch
     pool, futures, out, t0 = grid
     try:
@@ -3657,6 +3816,9 @@ def phase_dryrun(grid) -> dict:
           f"dryrun: skipped {sorted(skipped)}, want {sorted(want)}")
     status = {k: sum(r["status"] == k for r in recs.values())
               for k in ("ok", "refused", "skipped", "error")}
+    refused = {f"{a} x {s}": r["refused"] for (a, s), r in recs.items()
+               if r["status"] == "refused"}
+    check(not refused, f"dryrun: cells refused: {refused}")
     cells = {f"{a} x {s}": {
         "status": r["status"], "trace_s": r.get("trace_s"),
         "flops": r.get("cost", {}).get("flops"),
@@ -3803,6 +3965,44 @@ def phase_dryrun_cells(torch, dev) -> dict:
     return by_path
 
 
+def phase_examples() -> dict:
+    """EXAMPLES, each ``python examples/<name>.py`` in a process of its
+    own on the card, all started together (quickstart's checkpoints in a
+    temporary directory): every exit code 0 and the example's own line
+    printed; the seconds by which each had ended, and its last lines."""
+    import tempfile
+    runs, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        t0 = time.perf_counter()
+        for name, args in EXAMPLES.items():
+            extra = ("--ckpt", tmp) if name == "torch_quickstart" else ()
+            cmd = [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                   *args, *extra]
+            runs[name] = (subprocess.Popen(cmd, cwd=ROOT, text=True,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE), cmd)
+        try:
+            for name, (proc, cmd) in runs.items():
+                stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+                lines = stdout.splitlines()
+                out[name] = {"argv": cmd[2:], "returncode": proc.returncode,
+                             "ended_by_s": time.perf_counter() - t0,
+                             "last_lines": lines[-12:]}
+                check(proc.returncode == 0,
+                      f"examples: {name} exited {proc.returncode}:\n"
+                      f"{stderr[-3000:]}")
+                check(any(EXAMPLE_MARK[name] in ln for ln in lines),
+                      f"examples: {name} did not print "
+                      f"{EXAMPLE_MARK[name]!r}")
+        finally:                        # no example outlives the phase
+            for proc, _ in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    emit({"phase": "examples", "wall_s": time.perf_counter() - t0,
+          "runs": out})
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3858,6 +4058,7 @@ def main(argv=None) -> int:
     attn_timing, attn_err = phase_attn_kernels(torch, dev)
     phase_serve_parity(torch, dev)
     serve_launches, serve_device_ms = phase_serve(torch, dev)
+    head160_launches, head160_ms = phase_serve_stablelm12b(torch, dev)
     scan_times, scan_err, scan_state_err = phase_scan_kernels(torch, dev)
     phase_recurrent_serve_parity(torch, dev)
     recurrent = {arch: phase_serve_recurrent(torch, dev, arch)
@@ -3887,6 +4088,7 @@ def main(argv=None) -> int:
         train_paths["train_vlm"] = phase_train_vlm(torch, dev)
         train_paths["train_elastic"] = phase_train_elastic(torch, dev)
         phase_compression(torch, dev)
+        phase_examples()            # while the grid's last cells trace
         phase_dryrun(grid)
     finally:                        # the grid's processes end with the script
         grid[0].shutdown(cancel_futures=True)
@@ -3932,15 +4134,24 @@ def main(argv=None) -> int:
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k],
-            "launches": serve_launches[k] + zamba_launches[k]
-            + sum(by_family.values()) + sum(by_train.values()),
+            "launches": serve_launches[k] + head160_launches[k]
+            + zamba_launches[k] + sum(by_family.values())
+            + sum(by_train.values()),
             "launches_by_path": {"serve": serve_launches[k],
+                                 "serve_stablelm12b": head160_launches[k],
                                  "serve_zamba2": zamba_launches[k],
                                  **by_family, **by_train},
             "family_cases": {
                 case: {key: attn_timing[k][f"{case}/bfloat16"][key]
                        for key in timing_keys}
                 for case in cases},
+            "head_dim_160": {
+                "shape": FLASH_CASES[HEAD160_CASE] if k == "flash_attention"
+                else DECODE_CASES[HEAD160_CASE],
+                "device_ms_serve_stablelm12b": head160_ms[k],
+                **{dname: {key: attn_timing[k][f"{HEAD160_CASE}/{dname}"][key]
+                           for key in timing_keys + ("max_abs_err",)}
+                   for dname in ("bfloat16", "float32")}},
             "device_ms_by_family_path": {
                 path: ms[k] for path, (_, ms, _) in family.items()},
             "max_abs_err": attn_err[k], "ms": main_t["ms"],

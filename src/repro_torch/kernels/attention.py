@@ -26,7 +26,9 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+# the head dims both kernels are compiled for; 160 is stablelm-12b's (5120 /
+# 32), which the kernels take as it is (no padding of the cache)
+HEAD_DIMS = (32, 64, 128, 160)
 FLASH_MAX_GROUP = 64      # query heads per kv head: the float32 block's rows
 DECODE_MAX_GROUP = 16     # the decode kernel's register bucket
 FLASH_BLOCK_M = 128       # bf16 kernel: query rows per block (MMA_BM)
@@ -123,7 +125,8 @@ def _on(dev: torch.device):
 
 def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
     """q: (B, S, H, D); k/v: (B, Skv, Hkv, D); float32 or bfloat16,
-    contiguous, on one CUDA device.  Returns (B, S, H, D) in q's dtype.
+    contiguous, on one CUDA device; D in HEAD_DIMS, H / Hkv <=
+    FLASH_MAX_GROUP.  Returns (B, S, H, D) in q's dtype.
     bfloat16 runs on the tensor cores, float32 on the CUDA cores.  Queries
     are right-aligned (query i at position i + Skv - S), so Skv >= S unless
     nothing is masked (not causal, no window): then every query sees every
@@ -152,8 +155,8 @@ def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
 
 def decode_attention(q, k, v, kv_len, *, window=0) -> torch.Tensor:
     """q: (B, 1, H, D); k/v: (B, Smax, Hkv, D) caches in q's dtype; kv_len:
-    (B,) int32 live prefix lengths in [1, Smax].  Contiguous, on one CUDA
-    device.  Returns (B, 1, H, D) in q's dtype: one launch, nothing
+    (B,) int32 live prefix lengths in [1, Smax]; D in HEAD_DIMS, H / Hkv <=
+    DECODE_MAX_GROUP.  Contiguous, on one CUDA device.  Returns (B, 1, H, D) in q's dtype: one launch, nothing
     allocated but the output."""
     B, _, H, D = q.shape
     Smax, Hkv = k.shape[1], k.shape[2]

@@ -28,14 +28,19 @@
 // - Each block streams its keys through a ring of tiles of DA_TK keys in
 //   shared memory, filled by 16-byte cp.async copies: three tiles (bf16)
 //   are in flight while one is scored.
-// - D / 8 lanes own a key, 8 elements of it each, with the G query rows'
-//   matching elements in registers: a score is 8 G FMAs per lane and a
-//   short shuffle (for G <= 4 the G partial dots are reduce-scattered:
-//   log2(D / 8) + 1 shuffles for all four), not a full-warp reduction per
-//   key and head.
+// - LPK lanes own a key, E = D / LPK elements of it each, with the G query
+//   rows' matching elements in registers: a score is E G FMAs per lane and
+//   a short shuffle (for G <= 4 the G partial dots are reduce-scattered:
+//   log2(LPK) + 1 shuffles for all four), not a full-warp reduction per key
+//   and head.  LPK = D / 8 (E = 8, one 16-byte read of the ring) for D in
+//   {32, 64, 128}; at D = 160 (stablelm-12b) D / 8 = 20 lanes is no power
+//   of two and does not divide the warp, so 16 lanes take 10 elements each
+//   (five 32-bit words in bf16, five 8-byte reads in float32), two keys a
+//   warp; the ring still fills in 16-byte chunks, 20 (bf16) or 40
+//   (float32) a row.
 // - Each tile's scores go through one online-softmax update in shared
 //   memory (a warp per query head, a lane per key); the PV product then
-//   accumulates in registers, lanes on the same 8 columns as for K.
+//   accumulates in registers, lanes on the same E columns as for K.
 // - The partial (max, sum, output) of each block stays in its shared
 //   memory.  After a cluster barrier, each block reads the partials of
 //   its slice of the G x D outputs through distributed shared memory,
@@ -123,23 +128,53 @@ __device__ __forceinline__ float scatter4(const float (&d)[4], int c) {
   return k;
 }
 
-// 8 consecutive elements of a row in shared memory, as float32
-template <typename T>
-__device__ __forceinline__ void load8(float (&x)[8], const T* p);
-template <>
-__device__ __forceinline__ void load8<float>(float (&x)[8], const float* p) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+// the lanes that share a key at head_dim D (the header says why 160 differs)
+template <int D>
+__host__ __device__ constexpr int lanes_per_key() {
+  return D == 160 ? 16 : D / 8;
 }
-template <>
-__device__ __forceinline__ void load8<__nv_bfloat16>(float (&x)[8],
-                                                     const __nv_bfloat16* p) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+
+// E consecutive elements of a row in shared memory, as float32: 16-byte
+// reads where E is a multiple of 4 floats or 8 bf16 (E = 8), else 8-byte
+// float32 pairs or 4-byte bf16 pairs (E = 10)
+template <int E>
+__device__ __forceinline__ void load_elems(float (&x)[E], const float* p) {
+  if constexpr (E % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < E / 4; ++i) {
+      const float4 a = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = a.x; x[4 * i + 1] = a.y; x[4 * i + 2] = a.z;
+      x[4 * i + 3] = a.w;
+    }
+  } else {
+    static_assert(E % 2 == 0, "an even number of elements per lane");
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      const float2 a = reinterpret_cast<const float2*>(p)[i];
+      x[2 * i] = a.x;
+      x[2 * i + 1] = a.y;
+    }
+  }
+}
+template <int E>
+__device__ __forceinline__ void load_elems(float (&x)[E],
+                                           const __nv_bfloat16* p) {
+  static_assert(E % 2 == 0, "an even number of elements per lane");
+  unsigned w[E / 2];
+  if constexpr (E % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 8; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = u.x; w[4 * i + 1] = u.y; w[4 * i + 2] = u.z;
+      w[4 * i + 3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i)
+      w[i] = reinterpret_cast<const unsigned*>(p)[i];
+  }
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) {
     const float2 f = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
     x[2 * i] = f.x;
@@ -155,11 +190,15 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ kv_len, T* __restrict__ out, int Smax, int H,
     int Hkv, int window, float scale) {
-  constexpr int LPK = D / 8;                 // lanes per key
+  constexpr int LPK = lanes_per_key<D>();    // lanes per key
+  constexpr int E = D / LPK;                 // elements per lane
   constexpr int NKG = DA_THREADS / LPK;      // key groups per block
   constexpr int CPR = D * sizeof(T) / 16;    // 16-byte chunks per row
   constexpr int TILE = DA_TK * D;            // elements of one K or V tile
   constexpr int STAGES = stages<T>();
+  static_assert(32 % LPK == 0 && E * LPK == D && DA_TK % NKG == 0 &&
+                    2 * DA_TK * CPR % DA_THREADS == 0,
+                "lane layout must tile the warp, the row and the ring");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);  // stage s: K, then V
   float* part_o = reinterpret_cast<float*>(smem_raw);  // after the loop
@@ -212,19 +251,19 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) fetch(t);
 
-  // this thread's 8 elements of the G scaled query rows
-  float qr[GB][8], acc[GB][8];
+  // this thread's E elements of the G scaled query rows
+  float qr[GB][E], acc[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < E; ++e) {
       qr[g][e] = 0.0f;
       acc[g][e] = 0.0f;
     }
     if (g < G) {
-      const T* qp = q + (static_cast<long long>(b) * H + hk * G + g) * D + c * 8;
+      const T* qp = q + (static_cast<long long>(b) * H + hk * G + g) * D + c * E;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qr[g][e] = to_f32(qp[e]) * scale;
+      for (int e = 0; e < E; ++e) qr[g][e] = to_f32(qp[e]) * scale;
     }
   }
   if (tid < GB) {
@@ -246,14 +285,14 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
 #pragma unroll
     for (int pass = 0; pass < DA_TK / NKG; ++pass) {
       const int j = kg + pass * NKG;
-      float kx[8];
-      load8<T>(kx, ks + j * D + c * 8);
+      float kx[E];
+      load_elems(kx, ks + j * D + c * E);
       float dot[GB];
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         dot[g] = 0.0f;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) dot[g] = fmaf(qr[g][e], kx[e], dot[g]);
+        for (int e = 0; e < E; ++e) dot[g] = fmaf(qr[g][e], kx[e], dot[g]);
       }
       if constexpr (GB == 4) {
         const float x = scatter4<LPK>(dot, c);
@@ -296,18 +335,18 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
       if (g < G) {
         const float alpha = alpha_s[g];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+        for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
       }
     }
     for (int j = kg; j < nv; j += NKG) {
-      float vx[8];
-      load8<T>(vx, vs + j * D + c * 8);
+      float vx[E];
+      load_elems(vx, vs + j * D + c * E);
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         if (g < G) {
           const float p = s_s[g][j];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vx[e], acc[g][e]);
+          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vx[e], acc[g][e]);
         }
       }
     }
@@ -321,7 +360,7 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
   for (int g = 0; g < GB; ++g) {
     if (g >= G) break;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
+    for (int e = 0; e < E; ++e)
 #pragma unroll
       for (int o = LPK; o < 32; o <<= 1)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
@@ -331,8 +370,8 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
     for (int g = 0; g < GB; ++g)
       if (g < G) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          part_o[(warp * G + g) * D + c * 8 + e] = acc[g][e];
+        for (int e = 0; e < E; ++e)
+          part_o[(warp * G + g) * D + c * E + e] = acc[g][e];
       }
   }
   __syncthreads();
@@ -428,6 +467,7 @@ int by_dim(int D, int G, const void* q, const void* k, const void* v,
     case 32: return by_group<T, 32>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
     case 64: return by_group<T, 64>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
     case 128: return by_group<T, 128>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
+    case 160: return by_group<T, 160>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -436,7 +476,7 @@ int by_dim(int D, int G, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  D in {32, 64, 128}; G = H / Hkv <= 16;
+// dtype: 0 float32, 1 bfloat16.  D in {32, 64, 128, 160}; G = H / Hkv <= 16;
 // n_blocks in [1, 8] (the wrapper's
 // kernels/attention.py:decode_blocks).  Allocates nothing.
 int decode_attention_launch(const void* q, const void* k, const void* v,

@@ -27,8 +27,9 @@
 // the score registers as the A operand (the accumulator layout of one
 // product is the register A layout of the next) and V MN-major in shared
 // memory.  The tiles are in wgmma's canonical layout: rows of 64 elements
-// (32 at D = 32) under the hardware's 128-byte (64-byte) swizzle, D = 128
-// as two column atoms.  They arrive by cp.async 16-byte copies, the next
+// under the hardware's 128-byte swizzle where 64 divides D (D = 128 as two
+// column atoms), else rows of 32 under the 64-byte swizzle (D = 32 as one
+// atom, D = 160 as five).  They arrive by cp.async 16-byte copies, the next
 // key tile's in flight while the current one is computed (two stages); a
 // proxy fence makes them visible to wgmma.  The online softmax runs in
 // registers between the two products, in log2 units (exp2 of the scores
@@ -49,6 +50,13 @@
 // query tiles first so the last wave is not all short diagonal tiles.
 // TMA loads from a producer warp, and softmax overlapped with the next
 // tile's products, are the next step.
+//
+// D = 160 (stablelm-12b: 5120 / 32): S = Q K^T takes 10 k-steps of 16 on
+// 32-element atoms, and O += P V one m64n160k16 product per k-step and
+// fragment (the accumulator is 80 floats a thread).  With the 32 score
+// floats and the fragments that is more than the 128 registers two blocks
+// an SM allow, but its 123,904 bytes of shared memory fit only one block
+// an SM anyway, so that instance is compiled for one.
 //
 // float32: flash_attention_f32_kernel, on the CUDA cores (TF32 tensor
 // cores would break the float32 tolerances).  One block per (query tile,
@@ -258,14 +266,22 @@ constexpr int mma_smem_bytes() {
   return 2 * (MMA_BM * D + 4 * MMA_BN * D) + 1024;
 }
 
+// blocks an SM the register budget is set for: two where their shared
+// memory fits the SM's 228 KB (D <= 128), else one
+template <int D>
+constexpr int mma_min_blocks() {
+  return 2 * (mma_smem_bytes<D>() + 1024) <= 228 * 1024 ? 2 : 1;
+}
+
 // The shared-memory tiles are in wgmma's canonical swizzled layout: rows
-// of COLS = min(D, 64) elements (128 or 64 bytes), a tile of ROWS rows
-// stored as D / COLS column atoms one after another, and in each row the
-// 16-byte chunk c at c ^ (row mod 8) (128-byte rows) or c ^ (row / 2 mod 4)
-// (64-byte rows): the hardware's 128B / 64B swizzle.
+// of COLS elements, 64 (128 bytes) where 64 divides D, else 32 (64 bytes),
+// a tile of ROWS rows stored as D / COLS column atoms one after another,
+// and in each row the 16-byte chunk c at c ^ (row mod 8) (128-byte rows) or
+// c ^ (row / 2 mod 4) (64-byte rows): the hardware's 128B / 64B swizzle.
 template <int D>
 struct Atom {
-  static constexpr int COLS = D < 64 ? D : 64;
+  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
+  static constexpr int COLS = D % 64 == 0 ? 64 : 32;
   static constexpr int ROW_BYTES = 2 * COLS;
   static constexpr uint64_t SWIZZLE = ROW_BYTES == 128 ? 1 : 2;  // B128 : B64
   static constexpr uint32_t GROUP = 8 * ROW_BYTES / 16;  // 8 rows, 16 B units
@@ -420,6 +436,48 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 160, float32) += A (64 x 16, in registers) B (16 x 160), B
+// MN-major in shared memory (five 32-column atoms, LBO apart)
+__device__ __forceinline__ void wgmma_rs(float (&d)[20][4],
+                                           const unsigned (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 // two floats rounded to bf16, the first in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -467,7 +525,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 // grid (H, B, ceil(S / MMA_BM)), MMA_THREADS threads, mma_smem_bytes<D>().
 // Query tile blockIdx.z counts from the last tile down.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, 2) flash_attention_mma_kernel(
+__global__ void __launch_bounds__(MMA_THREADS, mma_min_blocks<D>())
+flash_attention_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, int S, int Skv, int H,
     int Hkv, int causal, int window, float scale_log2) {
@@ -688,7 +747,7 @@ int mma_launch(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // dtype: 0 float32 (CUDA cores, G = H / Hkv <= 64), 1 bfloat16 (tensor
-// cores).  D in {32, 64, 128}.
+// cores).  D in {32, 64, 128, 160}.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int S, int Skv, int H, int Hkv,
                            int D, int dtype, int causal, int window,
@@ -700,12 +759,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       case 32: return f32_launch<32>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
       case 64: return f32_launch<64>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
       case 128: return f32_launch<128>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
+      case 160: return f32_launch<160>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
     }
   } else {
     switch (D) {
       case 32: return mma_launch<32>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
       case 64: return mma_launch<64>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
       case 128: return mma_launch<128>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
+      case 160: return mma_launch<160>(q, k, v, out, B, S, Skv, H, Hkv, causal, window, st);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -2,7 +2,8 @@
 
 The port's copy of ``repro/launch/train.py``: the same flags, plus
 ``--device`` (CUDA by default, raising without a GPU; ``--device cpu`` runs
-the plain torch versions on the CPU).  Reduced (smoke) configs by default;
+the plain torch versions on the CPU) and ``--layers`` (the depth cut to that
+many layers, the widths kept).  Reduced (smoke) configs by default;
 ``--full-config`` trains the published widths and depth on the card.  The
 control loop is the ElasticTrainer (checkpoint/restart, ATLAS placement,
 speculative shard duplication, adaptive heartbeats); it prints the same
@@ -15,6 +16,7 @@ lines as the reference.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import pathlib
 
 from repro_torch.configs import ARCH_IDS, get_arch, smoke_reduce
@@ -40,12 +42,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a GPU) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     arch = get_arch(args.arch)
     if not args.full_config:
         arch = smoke_reduce(arch)
+    if args.layers is not None:
+        if not 0 < args.layers <= arch.n_layers:
+            ap.error(f"--layers must be in 1..{arch.n_layers}")
+        arch = dataclasses.replace(arch, n_layers=args.layers)
     print(f"[train] arch={arch.name} layers={arch.n_layers} "
           f"d_model={arch.d_model} atlas={args.atlas}")
 

@@ -215,6 +215,13 @@ FLASH_CASES = {
     "whisper_encoder": (4, 1500, 1500, 20, 20, 64, False, 0),
     "cross_fewer_keys": (4, 1088, 1024, 64, 8, 128, False, 0),
     "group16": (4, 1024, 1024, 64, 4, 128, True, 0),
+    # head_dim 160 (stablelm-12b: its prefill; a window; cross-attention to
+    # fewer keys than queries; a ragged S with ragged key tiles)
+    "d160_prefill": (4, 1024, 1024, 32, 8, 160, True, 0),
+    "d160_window": (2, 300, 300, 8, 2, 160, True, 100),
+    "d160_cross_fewer_keys": (2, 300, 200, 8, 2, 160, False, 0),
+    "d160_ragged": (3, 1000, 1000, 12, 4, 160, True, 0),
+    "d160_right_aligned": (2, 100, 333, 8, 8, 160, True, 0),
 }
 # (B, Smax, H, Hkv, D, window, kv_len); "one_key" and "window_one_block"
 # leave every cluster block but one without a key
@@ -230,6 +237,16 @@ DECODE_CASES = {
     # cache of 1500 encoder frames, every row live
     "group16": (4, 1088, 64, 4, 128, 0, (1088, 700, 1, 530)),
     "cross_static": (4, 1500, 20, 20, 64, 0, (1500,) * 4),
+    # head_dim 160 in each group bucket (1, 4 with G = 4 and G = 3, 16),
+    # ragged kv_len and windows; "d160_serve" is stablelm-12b's last step
+    "d160_serve": (4, 1088, 32, 8, 160, 0, (1088,) * 4),
+    "d160_g1": (3, 1088, 8, 8, 160, 0, (1088, 5, 777)),
+    "d160_g1_window": (3, 1088, 8, 8, 160, 64, (1088, 5, 777)),
+    "d160_g4": (4, 1088, 32, 8, 160, 0, (1025, 1088, 1, 530)),
+    "d160_g4_window": (4, 1088, 32, 8, 160, 256, (1088, 700, 256, 3)),
+    "d160_g3_window": (2, 300, 6, 2, 160, 50, (300, 17)),
+    "d160_g16": (4, 1088, 64, 4, 160, 0, (1088, 700, 1, 530)),
+    "d160_g16_window": (4, 1088, 64, 4, 160, 128, (1088, 700, 1, 530)),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -664,6 +681,9 @@ TRAIN_CASES = {
     # whisper's decoder), and a whisper-like encoder (S = Skv, D=64)
     "flash_cross": (2, 64, 160, 8, 2, 64, False, 0),
     "flash_encoder": (2, 150, 150, 4, 4, 64, False, 0),
+    # head_dim 160 (stablelm-12b's geometry: 4 query heads per kv head)
+    "flash_d160": (2, 128, 128, 8, 2, 160, True, 0),
+    "flash_d160_window": (2, 100, 100, 4, 1, 160, True, 24),
     "rwkv6_300": (2, 300, 2, 64),
     "rwkv6_256": (1, 256, 4, 32),
     "mamba2_300": (2, 300, 2, 16, 16),

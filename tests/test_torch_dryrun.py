@@ -117,13 +117,14 @@ def test_kernel_on_meta_outside_the_mode_raises():
 
 
 def test_kernel_refusal_is_recorded_not_raised():
-    """A head_dim the attention kernels do not take (stablelm-12b's 160):
-    counted, with the launcher's own message."""
-    q = k = v = _meta(1, 64, 2, 160, dtype=torch.bfloat16)
+    """A head_dim the attention kernels do not take (48): counted, with the
+    launcher's own message."""
+    q = k = v = _meta(1, 64, 2, 48, dtype=torch.bfloat16)
     got = cost.count(lambda q, k, v: ops.flash_attention(q, k, v), q, k, v)
     rec = got["kernels"]["flash_attention"]
     assert rec["launches"] == 1
-    assert rec["refused"] == ["head_dim must be one of (32, 64, 128), got 160"]
+    assert rec["refused"] == [
+        "head_dim must be one of (32, 64, 128, 160), got 48"]
     assert got["outputs"].shape == q.shape
 
 

@@ -32,7 +32,7 @@ from repro_torch.runtime import ElasticTrainer, RuntimeConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 _NO_JAX_RUN = """
 import sys

@@ -278,6 +278,27 @@ def test_launch_train_prints_reference_keys(tmp_path, reference_runs):
     assert (tmp_path / cfg.name).is_dir()
 
 
+def test_launch_train_layers_cuts_depth(tmp_path):
+    """--layers trains the config at that depth with its widths; a depth
+    outside 1..n_layers is refused."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train.main(["--arch", "stablelm-1.6b", "--steps", "1",
+                          "--hosts", "2", "--seq-len", "32",
+                          "--global-batch", "4", "--layers", "1",
+                          "--checkpoint-dir", str(tmp_path),
+                          "--device", "cpu"])
+    cfg = smoke_reduce(get_arch("stablelm-1.6b"))
+    assert buf.getvalue().splitlines()[0] == (
+        f"[train] arch={cfg.name} layers=1 d_model={cfg.d_model} atlas=True")
+    assert out["committed"] >= 1 and np.isfinite(out["final_loss"])
+    for bad in ("0", str(cfg.n_layers + 1)):
+        with pytest.raises(SystemExit), contextlib.redirect_stderr(
+                io.StringIO()):
+            train.main(["--arch", "stablelm-1.6b", "--layers", bad,
+                        "--device", "cpu"])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32])
 def test_checkpoint_digests_are_array_digests(dtype):
