@@ -20,7 +20,14 @@ bytes as bf16.  No ``ml_dtypes`` is needed on either side.  So a checkpoint
 written by either package restores in the port; one without bf16 leaves
 also restores in the JAX package, whose restore cannot cast the ``<V2``
 bytes back (ROADMAP section 3).  ``meta["treedef"]`` holds the port's
-sorted leaf paths; restore does not read it (nor does the reference's)."""
+sorted leaf paths; restore does not read it (nor does the reference's).
+
+A tree of DTensors (a train state on a mesh, ``parallel/partition.py``)
+is saved whole: every rank gathers each leaf (a collective, so every rank
+calls ``save``), rank 0 alone writes the same single ``shard_00000.npz``
+as an unsharded tree's, blocking, and every rank waits until it has.
+``restore(..., shardings=)`` lays each restored leaf out on a DeviceMesh,
+whatever mesh wrote it: the fleet may have shrunk or grown since."""
 
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ import torch
 
 from repro_torch.parallel.axes import (tree_leaves, tree_leaves_with_path,
                                        tree_unflatten)
+from repro_torch.parallel.partition import (distribute, distribute_tree,
+                                           is_dtensor)
 
 BF16_BITS = np.dtype("V2")        # a bf16 leaf's bytes on the host
 BF16_DESCR = "<V2"                # numpy's descriptor for ml_dtypes bfloat16
@@ -47,9 +56,12 @@ _DIGEST_THREADS = 8
 
 
 def _host(x) -> tuple:
-    """(numpy array, dtype name) of one leaf; a bf16 tensor's bits as V2."""
+    """(numpy array, dtype name) of one leaf; a bf16 tensor's bits as V2;
+    a DTensor gathered whole (every rank must call this for it)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if is_dtensor(x):
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             return (x.view(torch.int16).cpu().numpy().view(BF16_BITS),
                     "bfloat16")
@@ -133,6 +145,9 @@ def _restored(arr: np.ndarray, dtype_name: str, like) -> torch.Tensor:
             torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if is_dtensor(like):
+        return distribute(t.to(dtype=like.dtype), like.device_mesh,
+                          like.placements)
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
     return t
@@ -158,10 +173,18 @@ class CheckpointManager:
         copies the leaves one at a time as it writes them, so a 16 GB state
         never sits on the host whole."""
         paths = ["/".join(p) for p, _ in tree_leaves_with_path(tree)]
-        background = self.async_write and not block
+        sharded = any(is_dtensor(x) for x in tree_leaves(tree))
+        background = self.async_write and not block and not sharded
         leaves = [_host(x) for x in tree_leaves(tree)] if background \
             else (_host(x) for x in tree_leaves(tree))
         self.wait()
+        if sharded:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                for _ in leaves:        # the gathers rank 0 writes from
+                    pass
+                dist.barrier()
+                return
 
         def write():
             tmp = self.root / f".tmp_step_{step:09d}"
@@ -193,6 +216,8 @@ class CheckpointManager:
             self._thread.start()
         else:
             write()
+        if sharded:
+            dist.barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -218,10 +243,17 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like_tree, *, verify: bool = True):
+    def restore(self, step: int, like_tree, *, shardings=None,
+                verify: bool = True):
         """Restore into the structure of ``like_tree``: each leaf with its
-        dtype, on its device.  Raises IOError if a leaf's bytes do not match
-        their digest."""
+        dtype, on its device.  With ``shardings`` (a tree of
+        ``NamedSharding`` records, or None leaves for replicated) each leaf
+        comes back as a DTensor laid out by them on the DeviceMesh of the
+        shardings' mesh over the current process group, on the device type
+        of ``like_tree``'s leaves, as the
+        reference restores onto the current mesh.  A DTensor leaf of
+        ``like_tree`` (without ``shardings``) comes back laid out as it is.
+        Raises IOError if a leaf's bytes do not match their digest."""
         d = self.root / f"step_{step:09d}"
         meta = json.loads((d / "meta.json").read_text())
         leaves = tree_leaves(like_tree)
@@ -241,4 +273,12 @@ class CheckpointManager:
                 if fut.result() != meta["digests"][i]:
                     raise IOError(f"checkpoint leaf {i} digest mismatch "
                                   "(corrupt?)")
-        return tree_unflatten(like_tree, out)
+        tree = tree_unflatten(like_tree, out)
+        if shardings is None:
+            return tree
+        from repro_torch.launch.mesh import device_mesh
+        mesh = next(s.mesh for s in tree_leaves(shardings) if s is not None)
+        dev = next(x.device_mesh.device_type if is_dtensor(x)
+                   else x.device.type for x in leaves
+                   if isinstance(x, torch.Tensor))
+        return distribute_tree(tree, shardings, device_mesh(mesh, dev))

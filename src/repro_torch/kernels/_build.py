@@ -153,6 +153,9 @@ def load() -> ctypes.CDLL:
             lib.decode_attention_launch.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, i, p]
             lib.decode_attention_launch.restype = i
+            lib.decode_attention_partial_launch.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+            lib.decode_attention_partial_launch.restype = i
             lib.rwkv6_scan_launch.argtypes = [p] * 8 + [i] * 5 + [p]
             lib.rwkv6_scan_launch.restype = i
             lib.mamba2_ssd_launch.argtypes = [p] * 8 + [i] * 6 + [p]

@@ -153,11 +153,7 @@ def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
     return out
 
 
-def decode_attention(q, k, v, kv_len, *, window=0) -> torch.Tensor:
-    """q: (B, 1, H, D); k/v: (B, Smax, Hkv, D) caches in q's dtype; kv_len:
-    (B,) int32 live prefix lengths in [1, Smax]; D in HEAD_DIMS, H / Hkv <=
-    DECODE_MAX_GROUP.  Contiguous, on one CUDA device.  Returns (B, 1, H, D) in q's dtype: one launch, nothing
-    allocated but the output."""
+def _check_decode(q, k, v, kv_len):
     B, _, H, D = q.shape
     Smax, Hkv = k.shape[1], k.shape[2]
     _check_q(q, DECODE_MAX_GROUP, H, Hkv)
@@ -167,6 +163,17 @@ def decode_attention(q, k, v, kv_len, *, window=0) -> torch.Tensor:
     _check(k, "k", q.dtype, (B, Smax, Hkv, D), dev)
     _check(v, "v", q.dtype, (B, Smax, Hkv, D), dev)
     _check(kv_len, "kv_len", torch.int32, (B,), dev)
+
+
+def decode_attention(q, k, v, kv_len, *, window=0) -> torch.Tensor:
+    """q: (B, 1, H, D); k/v: (B, Smax, Hkv, D) caches in q's dtype; kv_len:
+    (B,) int32 live prefix lengths in [1, Smax]; D in HEAD_DIMS, H / Hkv <=
+    DECODE_MAX_GROUP.  Contiguous, on one CUDA device.  Returns (B, 1, H, D) in q's dtype: one launch, nothing
+    allocated but the output."""
+    B, _, H, D = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    _check_decode(q, k, v, kv_len)
+    dev = q.device
     out = torch.empty_like(q)
     if q.is_meta:                   # the dry run: checked, not launched
         return out
@@ -179,3 +186,35 @@ def decode_attention(q, k, v, kv_len, *, window=0) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "decode_attention")
     return out
+
+
+def decode_attention_partial(q, k, v, kv_len, *, start: int, window=0):
+    """The decode kernel's partial mode on one slice of a cache cut along
+    its sequence: k/v (B, Smax, Hkv, D) hold global positions [start,
+    start + Smax); kv_len (B,) int32 (any value >= 0) and ``window`` are
+    the whole cache's.  q, k, v as for ``decode_attention``.  Returns (o
+    (B, 1, H, D), m (B, H), l (B, H)), float32: the output against its max
+    m, not divided by the sum l of its weights; a sequence with no live key
+    in the slice gets o = 0, l = 0 and m = -inf.  ``ref.merge_partials``
+    merges the slices."""
+    B, _, H, D = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    _check_decode(q, k, v, kv_len)
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
+    dev = q.device
+    o = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    m = torch.empty(B, H, dtype=torch.float32, device=dev)
+    l = torch.empty(B, H, dtype=torch.float32, device=dev)
+    if q.is_meta:                   # the dry run: checked, not launched
+        return o, m, l
+    lib = _build.load()
+    with _on(dev):
+        rc = lib.decode_attention_partial_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), B, Smax, H, Hkv, D,
+            DTYPES[q.dtype], int(window), int(start),
+            decode_blocks(Smax, int(window), B * Hkv),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "decode_attention_partial")
+    return o, m, l

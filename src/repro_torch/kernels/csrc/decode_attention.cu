@@ -48,8 +48,19 @@
 //   keeps every block resident until all have.  No scratch in device
 //   memory, no second launch.
 //
-// The C entry point launches on the given stream, does not synchronise,
-// and returns the launch's error code so that a refused launch raises.
+// The partial mode (decode_attention_partial_launch) serves a cache whose
+// sequence is cut into slices, one per device of a mesh axis.  The slice
+// holds global positions [start, start + Smax); the live range stays in
+// global positions (kv_len and the window are the whole cache's) and is
+// clipped to the slice, so a slice may hold no live key.  Instead of the
+// normalised output the cluster writes its merged partial: the float32
+// output against its max m (not divided by the sum), m and the sum l per
+// (sequence, query head); a slice with no live key writes o = 0, l = 0
+// and m = -inf.  The caller merges the slices' partials
+// (kernels/ref.py:merge_partials).
+//
+// The C entry points launch on the given stream, do not synchronise, and
+// return the launch's error code so that a refused launch raises.
 
 #include <cooperative_groups.h>
 
@@ -184,12 +195,15 @@ __device__ __forceinline__ void load_elems(float (&x)[E],
 
 // grid (n, Hkv, B) in clusters of (n, 1, 1); DA_THREADS threads;
 // ring_bytes<T, D>() of dynamic shared memory.  GB >= G is the register
-// bucket of query heads per kv head.
+// bucket of query heads per kv head.  po == nullptr: the normalised output
+// into out; else the partial mode: the partial output into po (B, H, D)
+// and its max and sum into pm, pl (B, H), all float32.
 template <typename T, int D, int GB>
 __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ kv_len, T* __restrict__ out, int Smax, int H,
-    int Hkv, int window, float scale) {
+    const int* __restrict__ kv_len, T* __restrict__ out,
+    float* __restrict__ po, float* __restrict__ pm, float* __restrict__ pl,
+    int Smax, int H, int Hkv, int window, int start, float scale) {
   constexpr int LPK = lanes_per_key<D>();    // lanes per key
   constexpr int E = D / LPK;                 // elements per lane
   constexpr int NKG = DA_THREADS / LPK;      // key groups per block
@@ -215,10 +229,11 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % LPK, kg = tid / LPK;
 
-  // this block's share of the live range
+  // this block's share of the live range, the global live keys
+  // [len - window, len) clipped to the slice [start, start + Smax)
   const int len = kv_len[b];
-  const int hi = min(len, Smax);
-  const int lo = window ? max(0, len - window) : 0;
+  const int hi = min(len - start, Smax);
+  const int lo = max(0, (window ? len - window : 0) - start);
   const int live = max(0, hi - lo);
   const int j0 = lo + rank * live / n_blocks;
   const int j1 = lo + (rank + 1) * live / n_blocks;
@@ -395,26 +410,35 @@ __global__ void __launch_bounds__(DA_THREADS) decode_attention_kernel(
       w_s[r][tid] = w;
       den = fmaf(*cluster.map_shared_rank(&l_s[tid], r), w, den);
     }
-    den_s[tid] = fmaxf(den, 1e-37f);
+    den_s[tid] = den;
+    if (po != nullptr && rank == 0) {
+      const long long bh = static_cast<long long>(b) * H + hk * G + tid;
+      pm[bh] = den > 0.0f ? mx : __int_as_float(0xff800000);  // -inf
+      pl[bh] = den;
+    }
   }
   __syncthreads();
   const int per = (G * D + n_blocks - 1) / n_blocks;
   const int i_end = min(G * D, (rank + 1) * per);
-  T* dst = out + (static_cast<long long>(b) * H + hk * G) * D;
+  const long long o_off = (static_cast<long long>(b) * H + hk * G) * D;
   for (int i = rank * per + tid; i < i_end; i += DA_THREADS) {
     const int g = i / D;
     float num = 0.0f;
     for (int r = 0; r < n_blocks; ++r)
       num = fmaf(*cluster.map_shared_rank(&part_o[i], r), w_s[r][g], num);
-    dst[i] = from_f32<T>(num / den_s[g]);
+    if (po != nullptr)
+      po[o_off + i] = num;
+    else
+      out[o_off + i] = from_f32<T>(num / fmaxf(den_s[g], 1e-37f));
   }
   cluster.sync();                     // keep every partial until it is read
 }
 
 template <typename T, int D, int GB>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           void* out, int B, int Smax, int H, int Hkv, int window,
-           int n_blocks, cudaStream_t stream) {
+           void* out, float* po, float* pm, float* pl, int B, int Smax,
+           int H, int Hkv, int window, int start, int n_blocks,
+           cudaStream_t stream) {
   constexpr int smem = ring_bytes<T, D>();
   auto kernel = decode_attention_kernel<T, D, GB>;
   // the attribute once per instantiation and device
@@ -443,33 +467,54 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
                            static_cast<const T*>(k), static_cast<const T*>(v),
                            static_cast<const int*>(kv_len), static_cast<T*>(out),
-                           Smax, H, Hkv, window, attn::inv_sqrt(D));
+                           po, pm, pl, Smax, H, Hkv, window, start,
+                           attn::inv_sqrt(D));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the launch's arguments past the instance: the tensors, the shapes, the
+// window, the slice's first position and the cluster size
+struct Args {
+  const void *q, *k, *v, *kv_len;
+  void* out;
+  float *po, *pm, *pl;
+  int B, Smax, H, Hkv, window, start, n_blocks;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int GB>
+int launch_args(const Args& a) {
+  return launch<T, D, GB>(a.q, a.k, a.v, a.kv_len, a.out, a.po, a.pm, a.pl,
+                          a.B, a.Smax, a.H, a.Hkv, a.window, a.start,
+                          a.n_blocks, a.stream);
+}
+
 template <typename T, int D>
-int by_group(int G, const void* q, const void* k, const void* v,
-             const void* kv_len, void* out, int B, int Smax, int H, int Hkv,
-             int window, int n_blocks, cudaStream_t stream) {
-  if (G == 1)
-    return launch<T, D, 1>(q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
-  if (G <= 4)
-    return launch<T, D, 4>(q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
-  return launch<T, D, DA_MAX_G>(q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
+int by_group(int G, const Args& a) {
+  if (G == 1) return launch_args<T, D, 1>(a);
+  if (G <= 4) return launch_args<T, D, 4>(a);
+  return launch_args<T, D, DA_MAX_G>(a);
 }
 
 template <typename T>
-int by_dim(int D, int G, const void* q, const void* k, const void* v,
-           const void* kv_len, void* out, int B, int Smax, int H, int Hkv,
-           int window, int n_blocks, cudaStream_t stream) {
+int by_dim(int D, int G, const Args& a) {
   switch (D) {
-    case 32: return by_group<T, 32>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
-    case 64: return by_group<T, 64>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
-    case 128: return by_group<T, 128>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
-    case 160: return by_group<T, 160>(G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, stream);
+    case 32: return by_group<T, 32>(G, a);
+    case 64: return by_group<T, 64>(G, a);
+    case 128: return by_group<T, 128>(G, a);
+    case 160: return by_group<T, 160>(G, a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(int D, int dtype, const Args& a) {
+  if (a.B == 0) return static_cast<int>(cudaGetLastError());
+  if (a.n_blocks < 1 || a.n_blocks > DA_MAX_BLOCKS || a.H % a.Hkv ||
+      a.H / a.Hkv > DA_MAX_G)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = a.H / a.Hkv;
+  return dtype == 0 ? by_dim<float>(D, G, a) : by_dim<__nv_bfloat16>(D, G, a);
 }
 
 }  // namespace
@@ -483,15 +528,26 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* kv_len, void* out, int B, int Smax,
                             int H, int Hkv, int D, int dtype, int window,
                             int n_blocks, void* stream) {
-  if (B == 0) return static_cast<int>(cudaGetLastError());
-  if (n_blocks < 1 || n_blocks > DA_MAX_BLOCKS || H % Hkv ||
-      H / Hkv > DA_MAX_G)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = H / Hkv;
-  return dtype == 0
-      ? by_dim<float>(D, G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, st)
-      : by_dim<__nv_bfloat16>(D, G, q, k, v, kv_len, out, B, Smax, H, Hkv, window, n_blocks, st);
+  return dispatch(D, dtype,
+                  Args{q, k, v, kv_len, out, nullptr, nullptr, nullptr, B,
+                       Smax, H, Hkv, window, 0, n_blocks,
+                       static_cast<cudaStream_t>(stream)});
+}
+
+// The partial mode on a slice of the cache holding global positions
+// [start, start + Smax): kv_len (B,) and the window in global positions,
+// any kv_len >= 0.  Writes po (B, H, D), pm and pl (B, H), float32.
+int decode_attention_partial_launch(const void* q, const void* k,
+                                    const void* v, const void* kv_len,
+                                    void* po, void* pm, void* pl, int B,
+                                    int Smax, int H, int Hkv, int D,
+                                    int dtype, int window, int start,
+                                    int n_blocks, void* stream) {
+  return dispatch(D, dtype,
+                  Args{q, k, v, kv_len, nullptr, static_cast<float*>(po),
+                       static_cast<float*>(pm), static_cast<float*>(pl), B,
+                       Smax, H, Hkv, window, start, n_blocks,
+                       static_cast<cudaStream_t>(stream)});
 }
 
 }  // extern "C"

@@ -30,7 +30,20 @@ kernel, whose launcher runs its checks and returns meta outputs without
 launching (no plain version runs, no launch is counted); shapes the
 launcher refuses are recorded as refused and counted all the same.  This
 is the dry run's path; outside the mode a meta tensor resolves as any
-non-CUDA tensor does."""
+non-CUDA tensor does.
+
+On DTensors (a step run on a mesh by ``parallel/partition.py``) the
+attention kernels and the scans run under ``local_map`` on every rank's
+local block: batch and heads are independent, so each rank launches the
+kernel (or runs the plain version) on its own sequences and heads with no
+communication, and under autograd the backward runs per rank too.  A
+query head reads the kv head of its group: where the kv heads cannot be
+split as the query heads are (fewer kv heads than ranks), each rank keeps
+them whole and reads the ones its query heads need.  A decode whose cache
+is sharded along its sequence runs the decode kernel's partial mode on
+every rank's slice and merges the slices' partial softmaxes
+(``ref.merge_partials``) after gathering them over the mesh dimensions
+that cut the sequence.  Launch counters count per rank."""
 
 from __future__ import annotations
 
@@ -41,10 +54,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.launch import cost
+from repro_torch.parallel import partition
 
 IMPLS = ("torch", "cuda")
 KERNELS = ("forest_infer", "forest_infer_grouped", "flash_attention",
-           "decode_attention", "rwkv6_scan", "mamba2_ssd")
+           "decode_attention", "decode_attention_partial", "rwkv6_scan",
+           "mamba2_ssd")
 
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -250,6 +265,10 @@ def _flash_kernel(q, k, v, *, causal, window):
 def flash_attention(q, k, v, *, causal=True, window=0, impl=None):
     """Blockwise attention, GQA, right-aligned queries: q (B, S, H, D),
     k/v (B, Skv, Hkv, D) -> (B, S, H, D)."""
+    if partition.is_dtensor(q):
+        return _on_local_heads(
+            functools.partial(flash_attention, causal=causal, window=window,
+                              impl=impl), q, k, v)
     attend = functools.partial(
         ref.flash_attention_ref if _resolve(impl, q, "q") == "torch"
         else _flash_kernel, causal=causal, window=window)
@@ -261,6 +280,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, impl=None):
 def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
     """One query token per sequence against a KV cache: q (B, 1, H, D),
     k/v (B, Smax, Hkv, D), kv_len (B,) int32 live prefix lengths."""
+    if partition.is_dtensor(k):
+        if any(p.is_shard(1) for p in k.placements):
+            return _decode_over_slices(q, k, v, kv_len, window=window,
+                                       impl=impl)
+        return _on_local_heads(
+            lambda q, k, v, kv_len: decode_attention(
+                q, k, v, kv_len, window=window, impl=impl),
+            q, k, v, kv_len=kv_len)
     if _resolve(impl, q, "q") == "torch":
         return ref.decode_attention_ref(q, k, v, kv_len, window=window)
     from repro_torch.kernels import attention as ak
@@ -277,6 +304,177 @@ def decode_attention(q, k, v, kv_len, *, window=0, impl=None):
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
+def decode_attention_partial(q, k, v, kv_len, *, start, window=0,
+                             impl=None):
+    """The decode kernel's partial mode on one slice of a cache cut along
+    its sequence, holding global positions [start, start + Smax): q
+    (B, 1, H, D), k/v (B, Smax, Hkv, D), kv_len (B,) int32 and ``window``
+    the whole cache's.  Returns float32 (o (B, 1, H, D), m (B, H), l (B,
+    H)), merged by ``ref.merge_partials``
+    (``kernels.attention.decode_attention_partial``)."""
+    if _resolve(impl, q, "q") == "torch":
+        return ref.decode_attention_partial_ref(q, k, v, kv_len, start=start,
+                                                window=window)
+    from repro_torch.kernels import attention as ak
+    q, k, v, _ = _common_dtype(q, k, v)
+    B, _, H, D = q.shape
+    Smax = k.shape[1]
+
+    def outputs():
+        return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                q.new_empty(B, H, dtype=torch.float32),
+                q.new_empty(B, H, dtype=torch.float32))
+    return _launch(
+        "decode_attention_partial", q,
+        lambda: ak.decode_attention_partial(q, k, v, kv_len, start=start,
+                                            window=window),
+        lambda: cost.decode_partial_work(
+            B, Smax, H, k.shape[2], D, window,
+            [start + Smax] * B if q.is_meta else kv_len.tolist(), start,
+            _dtype_name(q)),
+        outputs)
+
+
+# ---------------------------------------------------------------------------
+# DTensor inputs: the kernels on every rank's local block
+# ---------------------------------------------------------------------------
+
+def _replicate_but(t, dims):
+    """DTensor t sharded only along tensor dims ``dims`` (a mesh dimension
+    that shards any other dim, or holds a partial sum, is replicated)."""
+    from torch.distributed.tensor import Replicate
+    return partition.placed(t, t.device_mesh, tuple(
+        p if p.is_shard() and p.dim in dims else Replicate()
+        for p in t.placements))
+
+
+def _follow(placements, dim_map, grad=False):
+    """Placements of a tensor whose dims ``dim_map`` maps from the lead's
+    (lead dim -> own dim, or absent where it has no such dim: replicated).
+    With ``grad``, the placements of its gradient from a rank's block: a
+    partial sum where the lead is sharded along a dim it lacks (each rank's
+    sequences or heads add their share)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = []
+    for p in placements:
+        if not p.is_shard():
+            out.append(Replicate())
+        elif p.dim in dim_map:
+            out.append(Shard(dim_map[p.dim]))
+        else:
+            out.append(Partial() if grad else Replicate())
+    return tuple(out)
+
+
+def _kv_heads_split(q, Hkv):
+    """How the kv heads (dim 2 of k/v) follow q's head split, mesh dim by
+    mesh dim: (placements of k/v, their gradients' placements, the query
+    heads' global offset if some mesh dim keeps the kv heads whole)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm, H = q.device_mesh, q.shape[2]
+    kpl, kgrad, whole = [], [], False
+    for i, p in enumerate(q.placements):
+        n = dm.size(i)
+        if p.is_shard(2):
+            if H % n:
+                raise ValueError(f"{H} query heads do not split over {n} "
+                                 f"ranks of mesh dim {i}")
+            if Hkv % n == 0:
+                kpl.append(Shard(2))
+                kgrad.append(Shard(2))
+                continue
+            whole = True
+            kpl.append(Replicate())
+            kgrad.append(Partial())   # each rank's kv heads' share
+        elif p.is_shard(0):
+            kpl.append(Shard(0))
+            kgrad.append(Shard(0))
+        else:
+            kpl.append(Replicate())
+            kgrad.append(Replicate())
+    h0 = partition.local_shape_offset(q)[1][2] if whole else None
+    return tuple(kpl), tuple(kgrad), h0
+
+
+def _own_kv_heads(k, v, h0: int, h_local: int, G: int):
+    """The kv heads query heads [h0, h0 + h_local) read (G query heads a kv
+    head)."""
+    if h_local % G and G % h_local:
+        raise ValueError(f"{h_local} local query heads at {h0} straddle "
+                         f"groups of {G}")
+    k0, k1 = h0 // G, -(-(h0 + h_local) // G)
+    return k[:, :, k0:k1], v[:, :, k0:k1]
+
+
+def _on_local_heads(fn, q, k, v, kv_len=None):
+    """``fn(q, k, v[, kv_len])`` on every rank's local sequences and query
+    heads of DTensors q (B, S, H, D), k/v (B, Skv, Hkv, D), under
+    ``local_map``; the output is placed as q."""
+    from torch.distributed.tensor.experimental import local_map
+    q = _replicate_but(q, (0, 2))
+    dm, H, Hkv = q.device_mesh, q.shape[2], k.shape[2]
+    kpl, kgrad, h0 = _kv_heads_split(q, Hkv)
+    k = partition.placed(k, dm, kpl)
+    v = partition.placed(v, dm, kpl)
+    args, pls, grads = [q, k, v], [q.placements, kpl, kpl], \
+        [q.placements, kgrad, kgrad]
+    if kv_len is not None:
+        lpl = _follow(q.placements, {0: 0})
+        args.append(partition.placed(kv_len, dm, lpl))
+        pls.append(lpl)
+        grads.append(lpl)
+
+    def local(q, k, v, *rest):
+        if h0 is not None:
+            k, v = _own_kv_heads(k, v, h0, q.shape[2], H // Hkv)
+        return fn(q.contiguous(), k.contiguous(), v.contiguous(), *rest)
+    out = local_map(local, out_placements=list(q.placements),
+                    in_placements=tuple(pls), in_grad_placements=tuple(grads),
+                    device_mesh=dm)(*args)
+    if tuple(out.shape) != tuple(q.shape):
+        raise ValueError(f"uneven blocks: {tuple(q.shape)} came back as "
+                         f"{tuple(out.shape)}")
+    return out
+
+
+def _decode_over_slices(q, k, v, kv_len, *, window, impl):
+    """Decode against a cache whose sequence (dim 1) is sharded: every rank
+    runs the partial mode on its slice (its global offset the slice's
+    start), the slices' (m, l, o) are gathered over the mesh dims that cut
+    the sequence and merged.  The query is one token, so it is replicated
+    over those dims; it follows the cache's batch and kv-head split."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dm, H, Hkv = k.device_mesh, q.shape[2], k.shape[2]
+    seq_dims = [i for i, p in enumerate(k.placements) if p.is_shard(1)]
+    for i, p in enumerate(k.placements):
+        if p.is_shard(2) and (H % dm.size(i) or Hkv % dm.size(i)):
+            raise ValueError(f"{H} query / {Hkv} kv heads do not split over "
+                             f"{dm.size(i)} ranks of mesh dim {i}")
+    qpl = _follow(k.placements, {0: 0, 2: 2})
+    q = partition.placed(q, dm, qpl)
+    v = partition.placed(v, dm, k.placements)
+    kv_len = partition.placed(kv_len, dm, _follow(k.placements, {0: 0}))
+    start = partition.local_shape_offset(k)[1][1]
+    o, m, l = decode_attention_partial(
+        q.to_local().contiguous(), k.to_local().contiguous(),
+        v.to_local().contiguous(), kv_len.to_local(), start=start,
+        window=window, impl=impl)
+
+    def gathered(t, dim_map):
+        """(slices, *t.shape): every slice's t along a new leading dim."""
+        pl = tuple(Shard(0) if i in seq_dims else p
+                   for i, p in enumerate(_follow(k.placements, dim_map)))
+        g = DTensor.from_local(t[None], dm, pl, run_check=False)
+        return g.redistribute(dm, tuple(
+            Replicate() if i in seq_dims else p for i, p in enumerate(pl))
+        ).to_local()
+    out = ref.merge_partials(gathered(m, {0: 1, 2: 2}),
+                             gathered(l, {0: 1, 2: 2}),
+                             gathered(o, {0: 1, 2: 3}))
+    return DTensor.from_local(out.to(q.dtype), dm, qpl, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
 def _rwkv6_kernel(r, k, v, w, u, state0):
     from repro_torch.kernels import recurrence as rk
     return _launch(
@@ -289,6 +487,11 @@ def rwkv6_scan(r, k, v, w, u, state0, *, impl=None):
     """WKV6 recurrence: r, k, v, w (B, S, H, Dh); u (H, Dh); state0
     (B, H, Dh, Dh) float32 -> (y (B, S, H, Dh) in r's dtype, final state
     float32).  Under autograd: ``ref.RWKV6Scan``, a launch per chunk."""
+    if partition.is_dtensor(r):
+        return _scan_on_local_heads(
+            functools.partial(rwkv6_scan, impl=impl), r,
+            (r, k, v, w, u, state0), ({0: 0, 2: 2},) * 4
+            + ({2: 0}, {0: 0, 2: 1}), ({0: 0, 2: 2}, {0: 0, 2: 1}))
     scan = ref.rwkv6_scan_ref if _resolve(impl, r, "r") == "torch" \
         else _rwkv6_kernel
     if _under_grad(r, k, v, w, u, state0):
@@ -309,8 +512,39 @@ def mamba2_ssd(x, dt, A, B, C, state0, *, impl=None):
     (B, S, N); state0 (B, H, P, N) float32 -> (y (B, S, H, P) in x's dtype,
     final state float32).  Under autograd: ``ref.SSDScan``, a launch per
     chunk."""
+    if partition.is_dtensor(x):
+        return _scan_on_local_heads(
+            functools.partial(mamba2_ssd, impl=impl), x,
+            (x, dt, A, B, C, state0), ({0: 0, 2: 2}, {0: 0, 2: 2}, {2: 0},
+                                       {0: 0}, {0: 0}, {0: 0, 2: 1}),
+            ({0: 0, 2: 2}, {0: 0, 2: 1}))
     scan = ref.ssd_chunk_ref if _resolve(impl, x) == "torch" \
         else _ssd_kernel
     if _under_grad(x, dt, A, B, C, state0):
         return ref.mamba2_ssd_chunked(x, dt, A, B, C, state0, scan=scan)
     return scan(x, dt, B, C, A, state0)
+
+
+def _scan_on_local_heads(fn, lead, args, in_maps, out_maps):
+    """A scan ``fn(*args)`` on every rank's local sequences and heads under
+    ``local_map``: ``lead`` (B, S, H, ...), the first of ``args``, is
+    sharded along batch and heads only, and every argument and output
+    follows it through its dim map (lead dim -> own dim; absent:
+    replicated).  Returns (y, final state) placed so."""
+    from torch.distributed.tensor.experimental import local_map
+    lead = _replicate_but(lead, (0, 2))
+    dm = lead.device_mesh
+    pls = tuple(_follow(lead.placements, m) for m in in_maps)
+    args = [lead] + [partition.placed(a, dm, pl)
+                     for a, pl in zip(args[1:], pls[1:])]
+    outs = local_map(
+        lambda *a: fn(*(t.contiguous() for t in a)),
+        out_placements=tuple(_follow(lead.placements, m) for m in out_maps),
+        in_placements=pls, in_grad_placements=tuple(
+            _follow(lead.placements, m, grad=True) for m in in_maps),
+        device_mesh=dm)(*args)
+    for o, a in zip(outs, (args[0], args[-1])):
+        if tuple(o.shape) != tuple(a.shape):
+            raise ValueError(f"uneven blocks: {tuple(a.shape)} came back as "
+                             f"{tuple(o.shape)}")
+    return outs

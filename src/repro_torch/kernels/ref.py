@@ -198,6 +198,79 @@ def decode_attention_ref(q, k, v, kv_len, *, window=0, kv_chunk=1024):
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def decode_attention_xla(q, k, v, kv_len, *, window=0):
+    """One-token decode attention as one masked softmax over the whole
+    cache: the reference's model-path decode (``repro/kernels/ref.py:
+    decode_attention_xla``), whose max, sum and contraction over the cache's
+    sequence GSPMD turns into the partial-softmax merge when the cache is
+    sharded along it.  The port merges such slices itself
+    (``decode_attention_partial_ref`` / the kernel's partial mode, then
+    ``merge_partials``); this form is their oracle.  Shapes as
+    ``decode_attention_ref``."""
+    B, _, H, D = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qf = (q.float() * (1.0 / math.sqrt(D))).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k.float())
+    kpos = torch.arange(Smax, device=q.device)[None, :]
+    lens = kv_len.to(device=q.device, dtype=torch.int64)[:, None]
+    mask = kpos < lens
+    if window:
+        mask &= kpos > lens - 1 - window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    out = out / torch.clamp(l[..., None], min=1e-37)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention_partial_ref(q, k, v, kv_len, *, start, window=0):
+    """The plain version of the decode kernel's partial mode: q (B, 1, H, D)
+    against one slice k/v (B, Smax, Hkv, D) of a cache cut along its
+    sequence, holding global positions [start, start + Smax); kv_len (B,)
+    and ``window`` are the whole cache's (a live key is at a position p <
+    kv_len, and p > kv_len - 1 - window with a window).  Returns float32 (o
+    (B, 1, H, D), m (B, H), l (B, H)): the output against its max m, not
+    divided by the sum l of its weights.  A sequence with no live key in
+    the slice gets o = 0, l = 0 and m = -inf."""
+    B, _, H, D = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qf = (q.float() * (1.0 / math.sqrt(D))).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k.float())
+    kpos = torch.arange(start, start + Smax, device=q.device)[None, :]
+    lens = kv_len.to(device=q.device, dtype=torch.int64)[:, None]
+    mask = kpos < lens
+    if window:
+        mask &= kpos > lens - 1 - window
+    mask = mask[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    m = torch.where(l > 0, m, -math.inf)
+    return o.reshape(B, 1, H, D), m.reshape(B, H), l.reshape(B, H)
+
+
+def merge_partials(m, l, o):
+    """Merge R slices' partials, stacked on a leading rank dimension: m, l
+    (R, B, H), o (R, B, 1, H, D), float32, as the partial mode and
+    ``decode_attention_partial_ref`` give them.  Returns the normalised
+    output (B, 1, H, D) float32: each slice weighed by exp(m_r - max_r
+    m_r), the weighted sums divided by the weighted l (floored at 1e-37).
+    A slice with no live key (m = -inf, l = 0, o = 0) weighs 0, and a
+    sequence with no live key in any slice gets 0, never NaN."""
+    top = m.amax(0)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    w = torch.where(torch.isinf(m), 0.0, torch.exp(m - top))    # (R, B, H)
+    den = (w * l).sum(0)
+    num = (w[:, :, None, :, None] * o).sum(0)
+    return num / torch.clamp(den, min=1e-37)[:, None, :, None]
+
+
 # ---------------------------------------------------------------------------
 # Recurrences: RWKV6 (WKV6) and Mamba2 (SSD)
 # ---------------------------------------------------------------------------

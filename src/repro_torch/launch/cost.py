@@ -25,8 +25,9 @@ ones (the card), and counts the same.
                    beyond its arguments (storages tracked by weak
                    reference, so a tensor autograd keeps counts until it
                    is freed)
-  collectives      None: without a partitioner the port cannot know them
-                   and does not estimate them
+  collectives      None: the count traces the whole step on one device,
+                   not the partitioned step (``parallel/partition.py``),
+                   and does not estimate a mesh's collectives
 
 Under the mode, ``kernels/ops.py`` takes a ``meta`` tensor for a tensor on
 the card: a wrapper whose impl resolves to the kernel runs the launcher's
@@ -62,8 +63,9 @@ HBM_BYTES = 80e9
 # mamba2 (stepwise): exp(dt A) S, (dt x) B, the sum, S C and its sum
 RWKV_OPS_PER_ELEMENT = 7
 SSD_OPS_PER_ELEMENT = 5
-COLLECTIVES_REASON = ("no partitioner: the port runs a step on one device "
-                      "and does not estimate a mesh's collectives")
+COLLECTIVES_REASON = ("the count traces the whole step on one device, not "
+                      "the partitioned step, and does not estimate a mesh's "
+                      "collectives")
 
 _ITEMSIZE = {"bfloat16": 2, "float32": 4}
 
@@ -119,6 +121,26 @@ def decode_work(B, Smax, H, Hkv, D, window, lens, dtype_name) -> tuple:
                for n in lens)
     nbytes = _ITEMSIZE[dtype_name] * (2 * live * Hkv * D + 2 * B * H * D) \
         + 4 * B
+    return nbytes, 4.0 * D * H * live, dtype_name
+
+
+def slice_live(lens, window, start, Smax) -> int:
+    """Live keys of a cache slice holding positions [start, start + Smax),
+    summed over sequences of kv_len ``lens`` (the whole cache's)."""
+    return sum(max(0, min(n - start, Smax)
+                   - max(0, (n - window if window else 0) - start))
+               for n in lens)
+
+
+def decode_partial_work(B, Smax, H, Hkv, D, window, lens, start,
+                        dtype_name) -> tuple:
+    """(bytes, FLOP, dtype) of one call of the decode kernel's partial mode
+    on a cache slice from ``start``: the slice's live K/V rows, q and
+    kv_len read once, the float32 partial output, max and sum written once;
+    4*D FLOP per live key per query head."""
+    live = slice_live(lens, window, start, Smax)
+    nbytes = _ITEMSIZE[dtype_name] * (2 * live * Hkv * D + B * H * D) \
+        + 4 * (B * H * D + 2 * B * H + B)
     return nbytes, 4.0 * D * H * live, dtype_name
 
 

@@ -6,8 +6,10 @@ The port's copy of ``repro/launch/dryrun.py``.  Where the reference lowers
 and compiles each cell for the mesh, the port traces its step on ``meta``
 tensors under ``launch/cost.py``'s counting mode: the kernels' launchers
 check their shapes and the kernels count by their own work formulas, the
-rest op by op.  The port has no partitioner, so the trace is the whole
-step on one device: ``cost`` and ``temp_bytes`` are the global step's, the
+rest op by op.  The trace is the whole step on one device (the count does
+not run the partitioned step of ``parallel/partition.py``, whose
+collectives it would have to estimate): ``cost`` and ``temp_bytes`` are
+the global step's, the
 arguments' bytes are given both per device (from the shardings, as the
 reference's ``memory_analysis``) and whole, and ``fits_one_h100`` asks
 whether the whole step fits one card.  The mesh still sets the step's MoE

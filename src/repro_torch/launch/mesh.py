@@ -1,10 +1,12 @@
-"""Meshes the dry run lays its shardings on.
+"""Meshes a step's shardings are laid on.
 
 The port's copy of ``repro/launch/mesh.py``.  A ``Mesh`` is axis names and
-sizes and nothing else, as JAX's ``AbstractMesh``: the port has no
-partitioner, so no mesh here holds devices or makes a process group.  The
-production meshes describe the reference's pods; ``one_card_mesh``
-describes one H100, the mesh whose cells the port can run."""
+sizes and nothing else, as JAX's ``AbstractMesh``: the dry run lays its
+shardings on such records without touching a device.  The production
+meshes describe the reference's pods; ``one_card_mesh`` describes one H100.
+``device_mesh`` makes a ``torch.distributed`` DeviceMesh of a record over
+an initialised process group, the mesh ``parallel/partition.py`` runs a
+cell on."""
 
 from __future__ import annotations
 
@@ -55,3 +57,31 @@ def data_shards(mesh) -> int:
 
 def model_shards(mesh) -> int:
     return dict(mesh.shape).get("model", 1)
+
+
+def device_mesh(mesh: Mesh, device=None):
+    """The ``torch.distributed`` DeviceMesh of ``mesh`` on ``device``'s type
+    (None: CUDA, under the port's device rule), its dimensions named and
+    sized as the mesh's axes.  It needs an initialised process group of
+    ``mesh.size`` processes on the device's backend (NCCL for CUDA, gloo
+    for the CPU, which a caller asks for with ``device="cpu"``), and raises
+    without one: it never makes a world of one by itself."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.ops import resolve_device
+    dev = resolve_device(device)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("device_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    backend = str(dist.get_backend()).lower()
+    if want not in backend.split(":") and want not in backend:
+        raise RuntimeError(f"a {dev.type} mesh runs over {want}; the process "
+                           f"group's backend is {backend}")
+    if dist.get_world_size() != mesh.size:
+        raise RuntimeError(f"mesh {mesh.name or mesh.axis_names} has "
+                           f"{mesh.size} devices, the process group "
+                           f"{dist.get_world_size()} processes")
+    return init_device_mesh(dev.type, mesh.axis_sizes,
+                            mesh_dim_names=mesh.axis_names)

@@ -4,9 +4,10 @@ allocation) and the NamedShardings they would have on the mesh.
 The port's copy of ``repro/launch/specs.py``: the same rules, specs and
 cell layout.  ``build_cell`` returns the step and its arguments for
 ``launch/cost.py``'s counting mode (the reference lowers them with
-``jax.jit``); the shardings are records that give each leaf's per-device
-shape (``parallel.axes.NamedSharding``), since the port has no
-partitioner."""
+``jax.jit``) and for ``parallel/partition.py:run_cell``, which runs the
+step on a DeviceMesh with the shardings applied; the shardings are
+records that also give each leaf's per-device shape
+(``parallel.axes.NamedSharding``)."""
 
 from __future__ import annotations
 
@@ -43,11 +44,14 @@ def arch_rules(arch: ArchConfig, shape: ShapeConfig, mesh):
 
 
 def shard_ctx(arch: ArchConfig, shape: ShapeConfig, mesh) -> ShardCtx:
-    """The step's runtime knobs on ``mesh``: its data shards set the MoE
-    routing groups and the microbatch split.  ``impl`` stays with the
-    device (the reference forces "xla"): on the card, and on ``meta``
-    under the counting mode, the cell runs the kernels."""
-    return ShardCtx(n_groups=data_shards(mesh))
+    """The step's runtime knobs on ``mesh``: the mesh and the cell's rules
+    (``constrain`` lays DTensor activations out by them), and the data
+    shards, which set the MoE routing groups and the microbatch split.
+    ``impl`` stays with the device (the reference forces "xla"): on the
+    card, and on ``meta`` under the counting mode, the cell runs the
+    kernels."""
+    return ShardCtx(mesh=mesh, rules=arch_rules(arch, shape, mesh),
+                    n_groups=data_shards(mesh))
 
 
 def batch_specs(arch: ArchConfig, shape: ShapeConfig) -> dict:
@@ -85,7 +89,8 @@ _sharding_tree = tree_sharding      # the reference's name
 def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh) -> dict:
     """{fn, args, in_shardings, out_shardings, donate_argnums}: the step,
     its ``meta`` arguments and their shardings on ``mesh`` (None:
-    replicated)."""
+    replicated).  ``parallel.partition.run_cell`` runs it on a DeviceMesh
+    of ``mesh``."""
     model = get_model(arch)
     rules = arch_rules(arch, shape, mesh)
     ctx = shard_ctx(arch, shape, mesh)

@@ -16,7 +16,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import NO_SHARD, ShardCtx
-from repro_torch.models.lm import (_need_media, _remat, promote_cross_cache,
+from repro_torch.models.lm import (_need_media, _remat, fresh_cache,
+                                   promote_cross_cache, put, put_rows,
                                    stack_defs, unstack, zeros_of)
 
 
@@ -77,6 +78,7 @@ def encode(params, cfg: ArchConfig, frames, ctx: ShardCtx = NO_SHARD):
     S, D = frames.shape[1:]
     pos = torch.arange(S, device=frames.device)
     x = frames + _sinusoid_at(pos, D).to(frames.dtype)[None]
+    x = ctx.constrain(x, "batch", "frames", "embed")
 
     def body(x, blk):
         h = L.attn_apply(blk["attn"], L.norm_apply(blk["ln1"], x),
@@ -162,17 +164,19 @@ def prefill(params, cfg: ArchConfig, tokens, *, media=None,
     B, S = tokens.shape
     max_len = max_len or S
     x = _embed(params, cfg, tokens, ctx)
-    cache = init_cache(cfg, B, max_len, x.device)
+    cache = fresh_cache(cache_struct(cfg, B, max_len), cache_axes(cfg), x,
+                        ctx)
     promote_cross_cache(cache, enc_out, params["dec_blocks"]["xattn"]["wk"])
     for i, blk in enumerate(unstack(params["dec_blocks"])):
         h, (k, v) = L.attn_prefill(blk["attn"], L.norm_apply(blk["ln1"], x),
                                    positions=None, theta=0.0, ctx=ctx,
-                                   cache_len=max_len, use_rope=False)
-        cache["k"][i], cache["v"][i] = k, v
-        cache["xk"][i] = L.einsum("bmd,dhk->bmhk", enc_out,
-                                  blk["xattn"]["wk"])
-        cache["xv"][i] = L.einsum("bmd,dhk->bmhk", enc_out,
-                                  blk["xattn"]["wv"])
+                                   use_rope=False)
+        put_rows(cache, "k", i, k)
+        put_rows(cache, "v", i, v)
+        put(cache, "xk", i, L.einsum("bmd,dhk->bmhk", enc_out,
+                                     blk["xattn"]["wk"]))
+        put(cache, "xv", i, L.einsum("bmd,dhk->bmhk", enc_out,
+                                     blk["xattn"]["wv"]))
         x = _mlp(blk, _cross(blk, x + h, enc_out, ctx), ctx)
     x = L.norm_apply(params["final_norm"], x[:, -1:])
     return L.lm_head_apply(params["embed"], x, ctx)[:, 0], cache

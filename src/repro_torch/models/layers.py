@@ -16,26 +16,46 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.parallel.axes import ParamDef
+from repro_torch.parallel.axes import NamedSharding, ParamDef, logical_to_spec
+from repro_torch.parallel.partition import (is_dtensor, local_shape_offset,
+                                           placed)
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Runtime knobs carried into the apply functions.  On one device the
-    kernel choice and the data-group count remain: ``impl`` is passed to
-    ``kernels.ops`` (None picks by device, "torch" the plain versions,
-    "cuda" the kernels); ``n_groups`` is the number of data shards (1 on
-    one device): the groups ``moe_apply`` routes and caps tokens within,
-    and what ``models.steps.make_train_step`` keeps every microbatch
-    divisible across."""
-    impl: str | None = None
+    """Runtime knobs carried into the apply functions, the reference's
+    ``ShardCtx``.  ``mesh`` (a ``launch.mesh.Mesh``) and ``rules`` (its
+    logical-axis rule table) place activations: ``constrain`` lays a
+    DTensor out as the rules say, on its own DeviceMesh, and is the
+    identity on plain tensors or without a mesh.  ``impl`` is
+    passed to ``kernels.ops`` (None picks by device, "torch" the plain
+    versions, "cuda" the kernels); ``n_groups`` is the number of data
+    shards (1 on one device): the groups ``moe_apply`` routes and caps
+    tokens within, and what ``models.steps.make_train_step`` keeps every
+    microbatch divisible across."""
+    mesh: Any = None
+    rules: Mapping[str, Any] | None = None
     n_groups: int = 1
+    impl: str | None = None
+
+    def spec_placements(self, device_mesh, *axes) -> tuple:
+        """The DTensor placements of logical ``axes`` on ``device_mesh``."""
+        return NamedSharding(self.mesh, logical_to_spec(
+            axes, self.rules, self.mesh)).placements(device_mesh)
+
+    def constrain(self, x, *axes):
+        if self.mesh is None or self.rules is None or not is_dtensor(x):
+            return x
+        return placed(x, x.device_mesh,
+                      self.spec_placements(x.device_mesh, *axes))
 
 
 NO_SHARD = ShardCtx()
@@ -151,16 +171,21 @@ def attn_apply(p, x, *, positions=None, theta=10000.0, causal=True,
         q = rope_apply(q, positions, theta)
         if kv_x is None:
             k = rope_apply(k, positions, theta)
+    q = ctx.constrain(q, "batch", "seq", "heads", "head_dim")
+    k = ctx.constrain(k, "batch", "seq", "kv_heads", "head_dim")
     out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal and kv_x is None, window=window,
                               impl=ctx.impl)
-    return _out(p, out)
+    return ctx.constrain(_out(p, out), "batch", "seq", "embed")
 
 
 def attn_prefill(p, x, *, positions, theta, causal=True, window=0,
-                 ctx: ShardCtx = NO_SHARD, cache_len: int, use_rope=True):
+                 ctx: ShardCtx = NO_SHARD, cache_len: int | None = None,
+                 use_rope=True):
     """Full-sequence attention that also emits a right-padded KV cache of
-    length cache_len: (y, (k, v)) with k/v (B, cache_len, Hkv, Dh)."""
+    length cache_len: (y, (k, v)) with k/v (B, cache_len, Hkv, Dh).  With
+    ``cache_len`` None, k/v are the S prompt rows unpadded, which the
+    model's prefill writes into its zero cache (``lm.put_rows``)."""
     q, k, v = _qkv(p, x)
     if use_rope:
         q = rope_apply(q, positions, theta)
@@ -168,9 +193,10 @@ def attn_prefill(p, x, *, positions, theta, causal=True, window=0,
     k, v = k.contiguous(), v.contiguous()
     out = ops.flash_attention(q.contiguous(), k, v, causal=causal,
                               window=window, impl=ctx.impl)
-    S = x.shape[1]
-    pad = (0, 0, 0, 0, 0, cache_len - S)
-    return _out(p, out), (F.pad(k, pad), F.pad(v, pad))
+    if cache_len is not None:
+        pad = (0, 0, 0, 0, 0, cache_len - x.shape[1])
+        k, v = F.pad(k, pad), F.pad(v, pad)
+    return ctx.constrain(_out(p, out), "batch", "seq", "embed"), (k, v)
 
 
 def attn_decode(p, x, cache_k, cache_v, pos, *, theta, window=0,
@@ -192,19 +218,52 @@ def attn_decode(p, x, cache_k, cache_v, pos, *, theta, window=0,
                             device=x.device)
         out = ops.decode_attention(q.contiguous(), ck, cv, kv_len,
                                    impl=ctx.impl)
-        return _out(p, out), (cache_k, cache_v)
+        return ctx.constrain(_out(p, out), "batch", "seq", "embed"), \
+            (cache_k, cache_v)
     q, k, v = _qkv(p, x)
     if use_rope:
         q = rope_apply(q, pos[:, None], theta)
         k = rope_apply(k, pos[:, None], theta)
-    bidx = torch.arange(x.shape[0], device=x.device)
     pos = pos.to(device=x.device, dtype=torch.long)
-    cache_k[bidx, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, pos] = v[:, 0].to(cache_v.dtype)
+    write_row(cache_k, k[:, 0], pos)
+    write_row(cache_v, v[:, 0], pos)
+    cache_k = ctx.constrain(cache_k, "batch", "kv_seq", "kv_heads",
+                            "head_dim")
+    cache_v = ctx.constrain(cache_v, "batch", "kv_seq", "kv_heads",
+                            "head_dim")
     kv_len = (pos + 1).to(torch.int32)
     out = ops.decode_attention(q.contiguous(), cache_k, cache_v, kv_len,
                                window=window, impl=ctx.impl)
-    return _out(p, out), (cache_k, cache_v)
+    return ctx.constrain(_out(p, out), "batch", "seq", "embed"), \
+        (cache_k, cache_v)
+
+
+def write_row(cache, row, slot):
+    """cache[b, slot[b]] = row[b] IN PLACE, for a cache (B, Smax, Hkv, Dh)
+    and rows (B, Hkv, Dh), cast to the cache's dtype.  On a DTensor cache
+    cut along its sequence, only the rank whose slice holds a sequence's
+    slot writes its row, at slot - start: the row is laid out as the cache
+    is apart from the sequence (replicated over the ranks that cut it),
+    and every rank writes into its own block."""
+    if not is_dtensor(cache):
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, slot] = row.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    dm = cache.device_mesh
+    row = placed(row, dm, tuple(
+        Shard(0) if pl.is_shard(0) else Shard(1) if pl.is_shard(2)
+        else Replicate() for pl in cache.placements)).to_local()
+    slot = placed(slot, dm, tuple(
+        Shard(0) if pl.is_shard(0) else Replicate()
+        for pl in cache.placements)).to_local()
+    local = cache.to_local()
+    idx = slot - local_shape_offset(cache)[1][1]
+    own = (idx >= 0) & (idx < local.shape[1])
+    idx = idx.clamp(0, local.shape[1] - 1)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    local[bidx, idx] = torch.where(own[:, None, None], row.to(local.dtype),
+                                   local[bidx, idx])
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +289,9 @@ def mlp_apply(p, x, ctx: ShardCtx = NO_SHARD):
         h = h.to(x.dtype) * up
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return einsum("bsf,fd->bsd", h, p["wd"])
+    h = ctx.constrain(h, "batch", "seq", "ff")
+    return ctx.constrain(einsum("bsf,fd->bsd", h, p["wd"]),
+                         "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -297,33 +358,67 @@ def moe_apply(p, x, cfg: ArchConfig, ctx: ShardCtx = NO_SHARD,
     more than ``chunk_tokens`` tokens are dispatched chunk by chunk and the
     aux loss is the chunks' mean.  Nothing here waits for the device: no
     boolean indexing and no host read, the reference's masks are
-    multiplications."""
+    multiplications.
+
+    On a DTensor x the dispatch runs under ``local_map`` on every rank's
+    own tokens (whole groups: the groups are the data shards), each rank
+    computing only the products of the experts it holds (the experts are
+    sharded over ``model``); the combine is then a partial sum over those
+    ranks, which the last ``constrain`` reduces."""
+    if is_dtensor(x):
+        return _moe_sharded(p, x, cfg, ctx, dropless)
+    B, S, _ = x.shape
+    y, me, ce = _moe_dispatch(p, x, cfg, _moe_groups(ctx.n_groups, B * S),
+                              dropless, ctx=ctx)
+    return ctx.constrain(y, "batch", "seq", "embed"), _moe_aux(cfg, me, ce)
+
+
+def _moe_groups(n_groups: int, T: int) -> int:
+    """The routing groups of T tokens: n_groups, or the largest divisor of
+    T below it."""
+    G = min(n_groups, T)
+    while T % G:
+        G -= 1
+    return G
+
+
+def _moe_aux(cfg: ArchConfig, me, ce):
+    """The load-balance aux loss (Switch-style, counted before drops) from
+    each chunk's mean router probabilities ``me`` and top-1 shares ``ce``
+    (n_chunks, E): the chunks' mean."""
+    m = cfg.moe
+    return ((me * ce).sum(-1) * m.n_experts * m.router_aux_weight).mean()
+
+
+def _moe_dispatch(p, x, cfg: ArchConfig, G: int, dropless, *, e_lo=0,
+                  shared=True, ctx: ShardCtx = NO_SHARD):
+    """The dispatch on plain tensors: x (B, S, D) in G groups -> (y (B, S,
+    D), me, ce (n_chunks, E)).  ``p``'s experts may be a block of the E:
+    those from expert ``e_lo``; y then holds only their outputs (and the
+    shared experts' when ``shared``)."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
-    G = min(ctx.n_groups, T)
-    while T % G:
-        G -= 1
     Tg = T // G
     if m.chunk_tokens and Tg > m.chunk_tokens:
         sub = m.chunk_tokens
         while Tg % sub:
             sub -= 1
         xs = x.reshape(G, Tg // sub, sub, D)
-        ys, auxs = zip(*(moe_apply(p, xs[:, i], cfg, ctx, dropless)
-                         for i in range(Tg // sub)))
-        return torch.stack(ys, 1).reshape(B, S, D), torch.stack(auxs).mean()
+        ys, mes, ces = zip(*(_moe_dispatch(p, xs[:, i], cfg, G, dropless,
+                                           e_lo=e_lo, shared=shared, ctx=ctx)
+                             for i in range(Tg // sub)))
+        return (torch.stack(ys, 1).reshape(B, S, D), torch.cat(mes),
+                torch.cat(ces))
     E, K = m.n_experts, m.top_k
+    El = p["wg"].shape[0]                     # the experts held here
     C = moe_capacity(cfg, Tg, dropless)
     dev = x.device
 
-    xt = x.reshape(G, Tg, D)
+    xt = ctx.constrain(x.reshape(G, Tg, D), "batch", None, "embed")
     probs, topv, topi = moe_route(p, xt, cfg)
-
-    # load-balance auxiliary loss (Switch-style), counted before drops
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))
-    aux = (me * ce).sum() * E * m.router_aux_weight
+    me = probs.mean(dim=(0, 1))[None]
+    ce = F.one_hot(topi[..., 0], E).float().mean(dim=(0, 1))[None]
 
     # dispatch: pair j = t * K + k of a group, sorted stably by expert
     eid = topi.reshape(G, Tg * K)
@@ -332,19 +427,27 @@ def moe_apply(p, x, cfg: ArchConfig, ctx: ShardCtx = NO_SHARD,
     experts = torch.arange(E, device=dev).expand(G, E).contiguous()
     start = torch.searchsorted(eid_s, experts)                 # (G, E)
     count = torch.searchsorted(eid_s, experts, right=True) - start
+    if El < E:
+        start_l = start[:, e_lo:e_lo + El]
+        count_l = count[:, e_lo:e_lo + El]
+    else:
+        start_l, count_l = start, count
     slot = torch.arange(C, device=dev)
-    src = start[..., None] + slot                              # (G, E, C)
-    filled = slot < count[..., None]
-    src = torch.where(filled, src, 0).reshape(G, E * C)
-    tok = (order.gather(1, src) // K).reshape(G, E, C)
+    src = start_l[..., None] + slot                            # (G, El, C)
+    filled = slot < count_l[..., None]
+    src = torch.where(filled, src, 0).reshape(G, El * C)
+    tok = (order.gather(1, src) // K).reshape(G, El, C)
     gidx = torch.arange(G, device=dev)
     xin = xt[gidx[:, None, None], tok] * filled[..., None].to(x.dtype)
+    xin = ctx.constrain(xin, "batch", "experts", None, "embed")
 
-    # the experts' FFN (G, E, C, D)
+    # the experts' FFN (G, El, C, D)
     gate = F.silu(torch.einsum("gecd,edf->gecf", xin, p["wg"]).float())
     up = torch.einsum("gecd,edf->gecf", xin, p["wu"])
-    h = gate.to(x.dtype) * up
+    h = ctx.constrain(gate.to(x.dtype) * up, "batch", "experts", None,
+                      "expert_ff")
     out_e = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    out_e = ctx.constrain(out_e, "batch", "experts", None, "embed")
 
     # combine: each pair's slot, its kept weight, the K outputs of a token
     # summed in increasing expert id
@@ -352,6 +455,10 @@ def moe_apply(p, x, cfg: ArchConfig, ctx: ShardCtx = NO_SHARD,
         1, order, torch.arange(Tg * K, device=dev).expand(G, -1)
         - start.gather(1, eid_s))
     keep = pair_slot < C
+    if El < E:
+        held = (eid >= e_lo) & (eid < e_lo + El)
+        keep = keep & held
+        eid = torch.where(held, eid - e_lo, 0)
     vals = out_e[gidx[:, None], eid, torch.where(keep, pair_slot, 0)]
     w = topv.reshape(G, Tg * K) * keep.float()
     vals = (vals * w.to(x.dtype)[..., None]).reshape(G, Tg, K, D)
@@ -361,9 +468,66 @@ def moe_apply(p, x, cfg: ArchConfig, ctx: ShardCtx = NO_SHARD,
     for k in range(1, K):
         y = y + vals[:, :, k]
     y = y.reshape(B, S, D)
-    if m.n_shared_experts:
+    if shared and m.n_shared_experts:
         y = y + mlp_apply(p["shared"], x, ctx)
-    return y, aux
+    return y, me, ce
+
+
+def _moe_sharded(p, x, cfg: ArchConfig, ctx: ShardCtx, dropless):
+    """moe_apply on a DTensor x: the dispatch under ``local_map`` on each
+    rank's tokens and its block of experts.  Per mesh dimension that
+    shards the batch the groups split with it; per mesh dimension that
+    shards the experts each rank combines only its experts' outputs, a
+    partial sum.  The router is gathered whole.  The mean router
+    probabilities and top-1 shares come out as partial sums of each
+    rank's share, so their gradients reach every rank whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    E = cfg.moe.n_experts
+    B, S, _ = x.shape
+    dm = x.device_mesh
+    wpl = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                for pl in p["wg"].placements)
+    xpl = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                for pl in x.placements)
+    batch = [i for i, pl in enumerate(xpl) if pl.is_shard()]
+    ep = [i for i, pl in enumerate(wpl) if pl.is_shard()]
+    if set(batch) & set(ep):
+        raise ValueError("one mesh dimension shards both the tokens and "
+                         "the experts")
+    n_batch = math.prod(dm.size(i) for i in batch)
+    n_ep = math.prod(dm.size(i) for i in ep)
+    G = _moe_groups(ctx.n_groups, B * S)
+    if G % n_batch or B % n_batch or E % n_ep:
+        raise ValueError(f"{G} routing groups of {B} sequences, {E} "
+                         f"experts: not whole on {n_batch} x {n_ep} ranks")
+    x = placed(x, dm, xpl)
+    experts = {k: placed(p[k], dm, wpl) for k in ("wg", "wu", "wd")}
+    router = placed(p["router"], dm, (Replicate(),) * dm.ndim)
+    e_lo = local_shape_offset(experts["wg"])[1][0]
+
+    def per(kinds):
+        return tuple(Partial() if i in kinds[0] else Shard(0)
+                     if i in kinds[1] else Replicate()
+                     for i in range(dm.ndim))
+    part = per((batch + ep, ()))
+
+    def local(xl, rl, wg, wu, wd):
+        y, me, ce = _moe_dispatch(
+            {"router": rl, "wg": wg, "wu": wu, "wd": wd}, xl, cfg,
+            G // n_batch, dropless, e_lo=e_lo, shared=False)
+        share = n_batch * n_ep
+        return y, me / share, ce / share
+    y, me, ce = local_map(
+        local,
+        out_placements=(per((ep, batch)), part, part),
+        in_placements=(xpl, router.placements) + (wpl,) * 3,
+        in_grad_placements=(per((ep, batch)), part) + (per((batch, ep)),) * 3,
+        device_mesh=dm)(x, router, experts["wg"], experts["wu"],
+                        experts["wd"])
+    if cfg.moe.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x, ctx)
+    return ctx.constrain(y, "batch", "seq", "embed"), _moe_aux(cfg, me, ce)
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +618,7 @@ def rwkv6_time_mix(p, x, x_prev_row, state0, cfg: ArchConfig,
                               state0, impl=ctx.impl)
     y = group_norm_apply(p["tm"]["ln_x"], y.reshape(B, S, D), rwkv_heads(cfg))
     y = torch.einsum("bse,ed->bsd", y * g, p["tm"]["wo"])
-    return y, (x[:, -1], state)
+    return ctx.constrain(y, "batch", "seq", "embed"), (x[:, -1], state)
 
 
 def rwkv6_channel_mix(p, x, x_prev_row):
@@ -533,7 +697,8 @@ def mamba2_apply(p, x, conv_state0, ssd_state0, cfg: ArchConfig,
     y = group_norm_apply(p["norm"], y.reshape(B, S, d_inner), H)
     y = y * F.silu(z.float()).to(x.dtype)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
-    return out, (seq[:, S:], ssd_state)
+    return ctx.constrain(out, "batch", "seq", "embed"), \
+        (seq[:, S:], ssd_state)
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +715,32 @@ def embed_defs(cfg: ArchConfig) -> dict:
 
 
 def embed_apply(p, tokens, ctx: ShardCtx = NO_SHARD):
-    return p["embedding"][tokens]
+    """The tokens' rows of the embedding.  On DTensors the table is
+    gathered whole and every rank looks up its own tokens (``local_map``):
+    a lookup into a table sharded over its vocabulary is left to no
+    DTensor strategy, whose backward differs between torch versions."""
+    table = p["embedding"]
+    if is_dtensor(table):
+        return ctx.constrain(_embed_local(table, tokens), "batch", "seq",
+                             "embed")
+    return ctx.constrain(table[tokens], "batch", "seq", "embed")
+
+
+def _embed_local(table, tokens):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = table.device_mesh
+    whole = (Replicate(),) * dm.ndim
+    if not is_dtensor(tokens):
+        tokens = placed(tokens, dm, whole)
+    tpl = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                for pl in tokens.placements)
+    # each rank's rows of the table's gradient: its own tokens' share
+    grad = tuple(Partial() if pl.is_shard() else Replicate() for pl in tpl)
+    return local_map(lambda t, ids: t[ids], out_placements=list(tpl),
+                     in_placements=(whole, tpl),
+                     in_grad_placements=(grad, tpl), device_mesh=dm)(
+        placed(table, dm, whole), placed(tokens, dm, tpl))
 
 
 def lm_head_apply(p, x, ctx: ShardCtx = NO_SHARD):
@@ -559,7 +749,7 @@ def lm_head_apply(p, x, ctx: ShardCtx = NO_SHARD):
         logits = torch.einsum("bsd,dv->bsv", x, p["lm_head"])
     else:
         logits = torch.einsum("bsd,vd->bsv", x, p["embedding"])
-    return logits.float()
+    return ctx.constrain(logits.float(), "batch", "seq", "vocab")
 
 
 def xent_loss(logits, targets, mask=None):

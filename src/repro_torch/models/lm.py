@@ -33,6 +33,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.parallel.axes import ParamDef, tree_leaves, tree_map
+from repro_torch.parallel.partition import (is_dtensor, like,
+                                           local_shape_offset, placed)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -423,15 +425,61 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return zeros_of(cache_struct(cfg, batch, max_len), device)
 
 
-def _prefill_attn(cfg, blk, x, positions, cache, i, max_len, ctx):
+def fresh_cache(struct: dict, axes: dict, x, ctx: ShardCtx) -> dict:
+    """A zero cache of ``struct``'s shapes and dtypes on x's device; when x
+    is a DTensor (a step on a mesh), DTensors laid out by the cache's
+    logical ``axes`` under ``ctx``'s rules."""
+    if not is_dtensor(x):
+        return zeros_of(struct, x.device)
+    if ctx.mesh is None or ctx.rules is None:
+        raise ValueError("a step on DTensors needs a ShardCtx with the mesh "
+                         "and rules its cache is laid out by")
+    from torch.distributed.tensor import zeros
+    dm = x.device_mesh
+    return {name: zeros(s.shape, dtype=s.dtype, device_mesh=dm,
+                        placements=ctx.spec_placements(dm, *axes[name]))
+            for name, s in struct.items()}
+
+
+def put(cache: dict, name: str, i: int, value):
+    """cache[name][i] = value, laid out as the cache is (a DTensor value
+    redistributed, a plain one replicated, on a DTensor cache)."""
+    dst = cache[name][i]
+    dst.copy_(like(value, dst) if is_dtensor(dst) else value)
+
+
+def put_rows(cache: dict, name: str, i: int, rows, skip: int = 0):
+    """cache[name][i][:, :n] = rows[:, skip:skip + n] (n = rows' length -
+    skip, at most the cache's; nothing when n <= 0), the cache's later rows
+    left as they are (zero in a fresh cache).  On a DTensor cache each rank
+    writes only the rows its own block holds: ``rows`` is laid out as the
+    cache is apart from its second dimension, whose every rank gets all of
+    it."""
+    dst = cache[name][i]
+    if not is_dtensor(dst):
+        n = min(dst.shape[1], rows.shape[1] - skip)
+        if n > 0:
+            dst[:, :n].copy_(rows[:, skip:skip + n])
+        return
+    from torch.distributed.tensor import Replicate
+    rows = placed(rows, dst.device_mesh, tuple(
+        Replicate() if pl.is_shard(1) else pl
+        for pl in dst.placements)).to_local()
+    local = dst.to_local()
+    lo = skip + local_shape_offset(dst)[1][1]
+    n = min(local.shape[1], rows.shape[1] - lo)
+    if n > 0:
+        local[:, :n].copy_(rows[:, lo:lo + n])
+
+
+def _prefill_attn(cfg, blk, x, positions, cache, i, ctx):
     """x plus the block's self-attention over the prompt; its keys and
-    values go into layer i of the KV cache."""
+    values go into the first rows of layer i of the KV cache."""
     h, (k, v) = L.attn_prefill(blk["attn"], L.norm_apply(blk["ln1"], x),
                                positions=positions, theta=cfg.rope_theta,
-                               window=cfg.sliding_window, ctx=ctx,
-                               cache_len=max_len)
-    cache["k"][i] = k
-    cache["v"][i] = v
+                               window=cfg.sliding_window, ctx=ctx)
+    put_rows(cache, "k", i, k)
+    put_rows(cache, "v", i, v)
     return x + h
 
 
@@ -473,10 +521,11 @@ def prefill(params, cfg: ArchConfig, tokens, *, media=None,
     max_len = max_len or S
     positions = _positions(B, S, tokens.device)
     x = L.embed_apply(params["embed"], tokens, ctx)
-    cache = init_cache(cfg, B, max_len, x.device)
+    cache = fresh_cache(cache_struct(cfg, B, max_len), cache_axes(cfg), x,
+                        ctx)
     if cfg.family in ("dense", "moe"):
         for i, blk in enumerate(_layers(params)):
-            x = _prefill_attn(cfg, blk, x, positions, cache, i, max_len, ctx)
+            x = _prefill_attn(cfg, blk, x, positions, cache, i, ctx)
             x = _ffn(cfg, blk, x, ctx)
     elif cfg.family == "vlm":
         _need_media(cfg, media)
@@ -486,9 +535,11 @@ def prefill(params, cfg: ArchConfig, tokens, *, media=None,
         for g, cross in enumerate(unstack(params["cross_blocks"])):
             for i in range(g * per, (g + 1) * per):
                 x = _prefill_attn(cfg, selfs[i], x, positions, cache, i,
-                                  max_len, ctx)
+                                  ctx)
                 x = _ffn(cfg, selfs[i], x, ctx)
-            cache["xk"][g], cache["xv"][g] = _media_kv(cross, media)
+            xk, xv = _media_kv(cross, media)
+            put(cache, "xk", g, xk)
+            put(cache, "xv", g, xv)
             x = _cross_block_apply(cfg, cross, x, media, ctx)
     elif cfg.family == "ssm":
         x = L.norm_apply(params["ln0"], x)
@@ -496,9 +547,9 @@ def prefill(params, cfg: ArchConfig, tokens, *, media=None,
         for i, blk in enumerate(unstack(params["blocks"])):
             x, tm_last, cm_last, state = _rwkv_block_apply(
                 cfg, blk, x, zeros_prev, zeros_prev, state0, ctx)
-            cache["wkv"][i] = state
-            cache["tm_prev"][i] = tm_last
-            cache["cm_prev"][i] = cm_last
+            put(cache, "wkv", i, state)
+            put(cache, "tm_prev", i, tm_last)
+            put(cache, "cm_prev", i, cm_last)
     else:  # hybrid
         conv0, ssd0 = _mamba_zeros(cfg, B, x)
         blocks = unstack(params["blocks"])
@@ -508,23 +559,22 @@ def prefill(params, cfg: ArchConfig, tokens, *, media=None,
             h, (k, v) = L.attn_prefill(sh["attn"], L.norm_apply(sh["ln1"], x),
                                        positions=positions,
                                        theta=cfg.rope_theta,
-                                       window=cfg.sliding_window, ctx=ctx,
-                                       cache_len=max_len)
+                                       window=cfg.sliding_window, ctx=ctx)
             x = x + h
             x = x + L.mlp_apply(sh["mlp"], L.norm_apply(sh["ln2"], x), ctx)
             # the trailing window of the cache (wrap-indexed at decode).  As
             # in the reference, it is cut from the cache padded to max_len,
-            # not from the S prompt rows (ROADMAP's watch list)
+            # not from the S prompt rows (ROADMAP's watch list): rows
+            # max_len - W on when S >= W, else rows 0 on; of those, the
+            # prompt's rows fill the front and the rest stays zero
             for name, t in (("shared_k", k), ("shared_v", v)):
-                if S >= W:
-                    cache[name][g] = t[:, -W:]
-                else:
-                    cache[name][g, :, :S] = t[:, :S]
+                put_rows(cache, name, g, t,
+                         skip=max_len - W if S >= W else 0)
             for i in range(lo, hi):
                 x, conv_s, ssd_s = _mamba_block_apply(
                     cfg, blocks[i], x, conv0, ssd0, ctx)
-                cache["conv"][i] = conv_s
-                cache["ssd"][i] = ssd_s
+                put(cache, "conv", i, conv_s)
+                put(cache, "ssd", i, ssd_s)
     x = L.norm_apply(params["final_norm"], x[:, -1:])
     return L.lm_head_apply(params["embed"], x, ctx)[:, 0], cache
 
@@ -547,9 +597,9 @@ def _rwkv_step(cfg, blk, x, cache, i):
     x = x + torch.einsum("bse,ed->bsd", y * g, blk["tm"]["wo"])
     h, cm_last = L.rwkv6_channel_mix(blk, L.norm_apply(blk["ln2"], x),
                                      cache["cm_prev"][i])
-    cache["wkv"][i] = wkv
-    cache["tm_prev"][i] = xin[:, -1]
-    cache["cm_prev"][i] = cm_last
+    put(cache, "wkv", i, wkv)
+    put(cache, "tm_prev", i, xin[:, -1])
+    put(cache, "cm_prev", i, cm_last)
     return x + h
 
 
@@ -574,8 +624,8 @@ def _mamba_step(cfg, blk, x, cache, i):
     y = y + xh * p["d_skip"].to(x.dtype)[None, :, None]
     y = L.group_norm_apply(p["norm"], y.reshape(B, 1, d_inner), H)
     y = y * F.silu(z.float()).to(x.dtype)
-    cache["conv"][i] = seq[:, 1:]
-    cache["ssd"][i] = ssd
+    put(cache, "conv", i, seq[:, 1:])
+    put(cache, "ssd", i, ssd)
     return x + torch.einsum("bse,ed->bsd", y, p["out_proj"])
 
 
@@ -590,9 +640,8 @@ def _shared_step(cfg, sh, x, cache, g, pos, ctx):
     ck, cv = cache["shared_k"][g], cache["shared_v"][g]
     W = ck.shape[1]
     pos = pos.to(device=x.device, dtype=torch.long)
-    bidx = torch.arange(x.shape[0], device=x.device)
-    ck[bidx, pos % W] = k[:, 0].to(ck.dtype)
-    cv[bidx, pos % W] = v[:, 0].to(cv.dtype)
+    L.write_row(ck, k[:, 0], pos % W)
+    L.write_row(cv, v[:, 0], pos % W)
     kv_len = torch.clamp(pos + 1, max=W).to(torch.int32)
     out = ops.decode_attention(q.contiguous(), ck, cv, kv_len, impl=ctx.impl)
     x = x + L._out(sh["attn"], out)

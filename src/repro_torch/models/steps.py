@@ -21,10 +21,16 @@ from repro_torch.models.layers import NO_SHARD, ShardCtx, lm_head_apply
 from repro_torch.models.registry import family_module, get_model
 from repro_torch.optim import adamw
 from repro_torch.parallel.axes import tree_leaves, tree_unflatten
+from repro_torch.parallel.partition import (is_dtensor, like, placed,
+                                           replicated)
 
 
 def _xent_chunk(embed_params, ctx, h, t):
     logits = lm_head_apply(embed_params, h, ctx)              # (B, c, V) fp32
+    if is_dtensor(logits):      # the gold logit's gather reads whole rows
+        from torch.distributed.tensor import Replicate
+        logits = placed(logits, logits.device_mesh, tuple(
+            Replicate() if p.is_shard(2) else p for p in logits.placements))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, torch.clamp(t, min=0)[..., None])[..., 0]
     mask = (t >= 0).float()
@@ -39,7 +45,8 @@ def chunked_xent(hidden, embed_params, targets, ctx: ShardCtx = NO_SHARD,
     ``targets`` (B, S); padded positions get target -1 and are masked."""
     B, S, D = hidden.shape
     chunk = min(chunk, S)
-    pad = (-S) % chunk
+    # a DTensor's last chunk is ragged instead (padded rows add nothing)
+    pad = 0 if is_dtensor(hidden) else (-S) % chunk
     targets = targets.long()
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
@@ -92,7 +99,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
     (``n_microbatches``) with gradient accumulation: each microbatch's
     gradient cast to float32, added to the accumulator and cast to its
     dtype (float32, or bf16 when cfg.opt_dtype is "bf16"), the sum divided
-    by the count in float32."""
+    by the count in float32.
+
+    On DTensor state (a step on a mesh, ``parallel/partition.py``) the
+    same step runs on the shards: the loss is reduced to a replicated
+    scalar before the backward pass, every gradient comes back laid out as
+    its parameter (the partial sums of parameters replicated over ``data``
+    reduced) before the accumulation and the update, and microbatch i holds
+    the batch's rows [i B / A, (i + 1) B / A), each split over the data
+    shards as the batch was."""
     get_model(cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         moment_dtype="bf16" if cfg.opt_dtype == "bf16" else "fp32")
@@ -105,16 +120,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
             loss, aux = train_loss(cfg, tree_unflatten(params, leaves),
                                    batch["tokens"], ctx,
                                    media=batch.get("media"))
+            if is_dtensor(loss):       # partial sums reduced
+                mesh = loss.device_mesh
+                loss, aux = replicated(loss, mesh), replicated(aux, mesh)
             grads = torch.autograd.grad(loss + aux, leaves,
                                         allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None
+                 else like(g, p) if is_dtensor(p) else g
                  for p, g in zip(leaves, grads)]
         return loss.detach(), aux.detach(), grads
 
     def train_step(state, batch):
         params = state["params"]
         dev = tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(batch[k], device=dev)
+        batch = {k: batch[k] if is_dtensor(batch[k])
+                 else torch.as_tensor(batch[k], device=dev)
                  for k in ("tokens", "media") if batch.get(k) is not None}
         batch["tokens"] = batch["tokens"].long()
         B = batch["tokens"].shape[0]
@@ -122,12 +142,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
         if A == 1:
             loss, aux, grads = grad_fn(params, batch)
         else:
-            acc = [torch.zeros(p.shape, dtype=acc_dtype, device=dev)
+            acc = [torch.zeros_like(p, dtype=acc_dtype)
                    for p in tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             aux = torch.zeros((), dtype=torch.float32, device=dev)
-            mbs = {k: v.reshape(A, B // A, *v.shape[1:])
-                   for k, v in batch.items()}
+            mbs = {k: _microbatches(v, A) for k, v in batch.items()}
             # on meta under launch/cost.py's count, one microbatch counted
             # for all: each runs the same operations on the same shapes
             with cost.repeat(batch["tokens"], A) as runs:
@@ -150,6 +169,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
                 "step": state["step"] + 1}, metrics
 
     return train_step, opt_cfg
+
+
+def _microbatches(v, A: int):
+    """(B, ...) -> (A, B / A, ...): microbatch i is rows [i B / A, (i + 1)
+    B / A).  A DTensor's batch split moves to the second dimension, so
+    each microbatch is split over the data shards as the batch was."""
+    out = v.reshape(A, v.shape[0] // A, *v.shape[1:])
+    if not is_dtensor(v):
+        return out
+    from torch.distributed.tensor import Shard
+    return placed(out, v.device_mesh, tuple(
+        Shard(p.dim + 1) if p.is_shard() else p for p in v.placements))
 
 
 def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NO_SHARD):

@@ -16,6 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch.parallel.axes import tree_leaves, tree_map, tree_unflatten
+from repro_torch.parallel.partition import is_dtensor, replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +75,15 @@ def opt_state_axes(param_axes: Any) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The norm of every leaf together.  On DTensors each leaf's sum of
+    squares is reduced over the shards first (a sharded leaf's local sum
+    is a partial sum), so the norm, and the clip scale taken from it, are
+    the whole tree's on every rank, never a rank's own."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    mesh = next((x.device_mesh for x in sums if is_dtensor(x)), None)
+    if mesh is not None:
+        sums = [replicated(x, mesh) for x in sums]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 def apply_updates(params, grads, opt_state, cfg: AdamWConfig):
@@ -86,7 +94,7 @@ def apply_updates(params, grads, opt_state, cfg: AdamWConfig):
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip > 0 \
-        else torch.ones((), device=gnorm.device)
+        else torch.ones_like(gnorm)
     md = _mdtype(cfg)
     b1, b2 = cfg.b1, cfg.b2
     c = count.float()

@@ -61,14 +61,25 @@ def decompress(q: torch.Tensor, scale: torch.Tensor, shape,
 
 def compressed_psum(g: torch.Tensor, group=None, resid=None):
     """Error-feedback int8 sum of ``g`` over the processes of ``group``
-    (``torch.distributed``; the default group when None).  Returns (the
-    summed gradient float32, the new residual float32).  Without an
+    (``torch.distributed``; the default group when None; a DeviceMesh
+    stands for its ``data`` dimension's group, the data-parallel sum, as
+    the reference's ``psum`` over the data axis).  Returns (the summed
+    gradient float32, the new residual float32).  Without an
     initialised process group the sum is over a world of one: the
     dequantised gradient itself.  The dequantised form is what is summed;
-    on a real fabric the int8 values and scales are what would move."""
+    on a real fabric the int8 values and scales are what would move.  A
+    ``group`` without an initialised process group raises."""
     gin = g.float() + (resid.float() if resid is not None else 0.0)
     q, scale, new_resid = compress(gin)
     deq = decompress(q, scale, g.shape)
-    if dist.is_available() and dist.is_initialized():
+    ready = dist.is_available() and dist.is_initialized()
+    if group is not None:
+        if not ready:
+            raise RuntimeError("compressed_psum over a group needs an "
+                               "initialised process group")
+        from torch.distributed.device_mesh import DeviceMesh
+        if isinstance(group, DeviceMesh):
+            group = group.get_group("data")
+    if ready:
         dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
     return deq, new_resid

@@ -22,10 +22,11 @@ Logical axes used in the zoo:
   conv       conv kernel width           -> None
   frames     audio/vision token dim      -> None
 
-The port has no partitioner: ``PartitionSpec`` and ``NamedSharding`` here
-are records of where each leaf would live on a mesh (``launch/mesh.py``)
-and what a device holds of it, which the dry run (``launch/dryrun.py``)
-reads.  A ``ParamDef`` per parameter tensor (shape, dtype, logical axes,
+``PartitionSpec`` and ``NamedSharding`` here are records of where each
+leaf lives on a mesh (``launch/mesh.py``) and what a device holds of it,
+which the dry run (``launch/dryrun.py``) reads; ``NamedSharding.placements``
+turns one into the DTensor placements on a ``DeviceMesh`` of that mesh,
+which ``parallel/partition.py`` runs a step with.  A ``ParamDef`` per parameter tensor (shape, dtype, logical axes,
 initializer) is the single source of truth for the abstract shape tree,
 the axes tree and ``init_params``.
 
@@ -204,6 +205,26 @@ class NamedSharding:
     def shard_bytes(self, t: torch.Tensor) -> int:
         """Bytes of one device's block of tensor ``t`` (meta or real)."""
         return math.prod(self.shard_shape(t.shape)) * t.element_size()
+
+    def placements(self, device_mesh) -> tuple:
+        """The DTensor placements of this sharding on ``device_mesh`` (a
+        ``torch.distributed`` DeviceMesh whose dimension names are this
+        mesh's axis names): a tensor dimension named by a mesh axis, alone
+        or in a tuple, is ``Shard(dim)`` on that mesh dimension, every other
+        mesh dimension ``Replicate()``.  DTensor splits an uneven dimension
+        unevenly (the last blocks smaller), where ``shard_shape`` pads every
+        block to the first's size."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = tuple(device_mesh.mesh_dim_names or ())
+        if set(names) != set(self.mesh.axis_names):
+            raise ValueError(f"device mesh axes {names} against the mesh's "
+                             f"{self.mesh.axis_names}")
+        out = [Replicate()] * len(names)
+        for dim, part in enumerate(self.spec):
+            for axis in () if part is None else \
+                    (part,) if isinstance(part, str) else part:
+                out[names.index(axis)] = Shard(dim)
+        return tuple(out)
 
 
 def tree_sharding(axes_tree: Any, rules: Mapping[str, Any], mesh) -> Any:

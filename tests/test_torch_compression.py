@@ -17,8 +17,10 @@ reference's jit fuses a product the port rounds (named in the test).
 dequantised gradients (each process's own error feedback).  The workers
 run under ``torch.multiprocessing.spawn``."""
 
+import datetime
 import os
 import socket
+import time
 
 import jax
 import jax.numpy as jnp
@@ -172,9 +174,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+PG_TIMEOUT_S = 120         # a dead peer fails the collective, not hangs
+JOIN_DEADLINE_S = 300      # then the test fails instead of holding a worker
+
+
 def _worker(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     try:
         g = torch.as_tensor(_input("ragged")) * (rank + 1)
         resid = None
@@ -188,8 +195,19 @@ def _worker(rank, world, port, out_dir):
 
 def test_compressed_psum_sums_over_a_process_group(tmp_path):
     world = 2
-    mp.spawn(_worker, args=(world, _free_port(), str(tmp_path)),
-             nprocs=world, join=True)
+    ctx = mp.start_processes(_worker, args=(world, _free_port(),
+                                            str(tmp_path)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_DEADLINE_S
+    try:
+        while not ctx.join(timeout=1):
+            assert time.monotonic() < deadline, \
+                f"ranks still running after {JOIN_DEADLINE_S} s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
     res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
     want = torch.zeros(_input("ragged").shape)
     for r in range(world):

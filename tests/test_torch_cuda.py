@@ -984,3 +984,79 @@ def test_cost_count_on_the_card_equals_launch_counts(dev, arch, kind):
         assert real["kernels"][k]["launches"] == launches[k] == \
             meta["kernels"][k]["launches"], k
     assert real["flops"] == meta["flops"]
+
+
+# the decode kernel's partial mode: DECODE_CASES' caches cut into 1, 2 and
+# 4 slices along the sequence (the slices of a kv_seq-sharded cache), each
+# slice's (o, m, l) against the plain partial, and the merged slices
+# against the whole-cache kernel and the plain version
+PARTIAL_CASES = ("serve", "ragged", "window", "d32_g2", "one_key",
+                 "window_one_block", "group16", "d160_g4", "d160_g4_window",
+                 "d160_g16_window")
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_decode_attention_partial_mode(dev, case, dtype, slices):
+    from repro_torch.kernels import ref
+    B, Smax, H, Hkv, D, window, lens = DECODE_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = _randn(gen, (B, 1, H, D), dtype, dev)
+    k = _randn(gen, (B, Smax, Hkv, D), dtype, dev)
+    v = _randn(gen, (B, Smax, Hkv, D), dtype, dev)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    bounds = [Smax * r // slices for r in range(slices + 1)]
+    parts, before = [], ops.launch_counts()["decode_attention_partial"]
+    for r in range(slices):
+        lo, hi = bounds[r], bounds[r + 1]
+        ks, vs = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
+        got = ops.decode_attention_partial(q, ks, vs, kv_len, start=lo,
+                                           window=window)
+        want = ops.decode_attention_partial(q, ks, vs, kv_len, start=lo,
+                                            window=window, impl="torch")
+        torch.cuda.synchronize()
+        o, m, l = got
+        assert o.dtype == m.dtype == l.dtype == torch.float32
+        assert torch.equal(torch.isneginf(m), torch.isneginf(want[1]))
+        assert torch.equal(l == 0, want[2] == 0)
+        live = ~torch.isneginf(want[1])
+        torch.testing.assert_close(m[live], want[1][live], **_tol(dtype))
+        torch.testing.assert_close(l / want[2].clamp(min=1e-30),
+                                   torch.where(live, 1.0, 0.0),
+                                   **_tol(dtype))
+        parts.append(got)
+    assert ops.launch_counts()["decode_attention_partial"] == \
+        before + slices
+    o, m, l = (torch.stack(x) for x in zip(*parts))
+    merged = ref.merge_partials(m, l, o)
+    whole = ops.decode_attention(q, k, v, kv_len, window=window)
+    plain = ref.decode_attention_xla(q, k, v, kv_len, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(merged).all()
+    torch.testing.assert_close(merged, plain.float(), **_tol(dtype))
+    torch.testing.assert_close(merged.to(q.dtype).float(), whole.float(),
+                               **_tol(dtype))
+
+
+def test_decode_attention_partial_empty_slices(dev):
+    """A slice past every live key and a kv_len of 0: o = 0, l = 0, m =
+    -inf from the kernel, and the merge gives 0 there, never NaN."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = _randn(gen, (3, 1, 8, 128), "bf16", dev)
+    k = _randn(gen, (3, 512, 2, 128), "bf16", dev)
+    kv_len = torch.tensor([0, 100, 256], dtype=torch.int32, device=dev)
+    o, m, l = ops.decode_attention_partial(q, k[:, 256:].contiguous(),
+                                           k[:, 256:].contiguous(), kv_len,
+                                           start=256)
+    torch.cuda.synchronize()
+    assert torch.isneginf(m).all() and (l == 0).all() and (o == 0).all()
+    o0, m0, l0 = ops.decode_attention_partial(
+        q, k[:, :256].contiguous(), k[:, :256].contiguous(), kv_len, start=0)
+    out = ref.merge_partials(torch.stack([m0, m]), torch.stack([l0, l]),
+                             torch.stack([o0, o]))
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    whole = ops.decode_attention(q[1:], k[1:], k[1:], kv_len[1:])
+    torch.testing.assert_close(out[1:].to(q.dtype).float(), whole.float(),
+                               **_tol("bf16"))
